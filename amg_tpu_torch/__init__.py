@@ -1,0 +1,13 @@
+"""amg_tpu_torch — the PyTorch/CUDA port of amg_tpu for NVIDIA Hopper (H100).
+
+The JAX package `amg_tpu` is the reference; this package mirrors its layout
+(`amg_tpu_torch/solve/struct_cycle.py` <-> `amg_tpu/solve/struct_cycle.py`,
+and so on) and imports nothing of it. Host setup is numpy/scipy in float64;
+device state is torch tensors. Every Pallas kernel of the reference becomes a
+CUDA C++ kernel written for sm_90a (`csrc/`), built at first use by
+`ops/_build.py`, with a plain PyTorch version beside it that the CPU runs.
+
+Entry points (`setup.structured.build_structured_hierarchy`,
+`solve.struct_cycle.struct_solve`, `solve.struct_cycle.struct_timed_cycles`)
+run on the CUDA device unless the caller passes `device="cpu"`.
+"""

@@ -1,0 +1,71 @@
+"""Float64 arrays -> the port's device `Hierarchy`.
+
+The structured builder hands its host result to `hierarchy_from_arrays`, and
+a hierarchy built by the reference package crosses over the same way: the
+caller extracts plain numpy arrays and dicts from it (nothing of the
+reference's types reaches this module), so both packages can run on an
+identical hierarchy. Per level:
+
+    {"A": {"kind": "stencil", "weights": (m,), "offsets", "grid_shape"}
+          | {"kind": "var", "coeffs": (m, *grid_shape), "offsets", "grid_shape"},
+     "sm": {"scale": (n,), "inv_wscale": (n,), "w": ()},
+     "transfer": None | {"fine_shape", "coarse_shape"}}
+
+plus the dense `coarse_Ainv` of the coarsest level.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from amg_tpu_torch.dtypes import resolve_device
+from amg_tpu_torch.setup.hierarchy import Hierarchy, Level
+from amg_tpu_torch.setup.structured import (
+    StructuredProlong,
+    StructuredRestrict,
+    VarStencilOperator,
+)
+from amg_tpu_torch.smooth.smoothers import smoother_data_from_arrays
+from amg_tpu_torch.sparse.stencil import StencilOperator
+
+
+def _tensor(a, dtype, device):
+    return torch.from_numpy(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype)
+
+
+def operator_from_arrays(A: dict, dtype, device):
+    offsets = tuple(tuple(int(d) for d in o) for o in A["offsets"])
+    grid_shape = tuple(int(s) for s in A["grid_shape"])
+    if A["kind"] == "stencil":
+        return StencilOperator(
+            weights=_tensor(A["weights"], dtype, device),
+            offsets=offsets, grid_shape=grid_shape,
+        )
+    if A["kind"] == "var":
+        return VarStencilOperator(
+            coeffs=_tensor(A["coeffs"], dtype, device),
+            offsets=offsets, grid_shape=grid_shape,
+        )
+    raise ValueError(f"unknown operator kind {A['kind']!r}")
+
+
+def hierarchy_from_arrays(levels, coarse_Ainv, dtype=torch.float64, device=None) -> Hierarchy:
+    """The port's Hierarchy on `device` (None: the CUDA device; raises
+    without one) in `dtype`, from float64 host arrays."""
+    device = resolve_device(device)
+    out = []
+    for lv in levels:
+        P = R = None
+        if lv["transfer"] is not None:
+            fs = tuple(int(s) for s in lv["transfer"]["fine_shape"])
+            cs = tuple(int(s) for s in lv["transfer"]["coarse_shape"])
+            P = StructuredProlong.build(fs, cs, dtype, device)
+            R = StructuredRestrict.build(fs, cs, dtype, device)
+        out.append(
+            Level(
+                A=operator_from_arrays(lv["A"], dtype, device), P=P, R=R,
+                sm=smoother_data_from_arrays(lv["sm"], dtype, device),
+            )
+        )
+    return Hierarchy(levels=tuple(out), coarse_Ainv=_tensor(coarse_Ainv, dtype, device))

@@ -1,0 +1,61 @@
+// Shared pieces of the stencil and transfer kernels (sm_90a).
+//
+// Layout: every grid state lives in the port's padded layout, a dense
+// row-major (Zr, Yr, Xr) array with Zr = Z+2, Yr = Y+2, Xr = X+2 rounded up to
+// a multiple of 4 (16-byte rows in float32). The one-cell zero shell is the
+// homogeneous-Dirichlet truncation of the assembled operator, so a reach-1
+// stencil at an interior point reads its neighbours without any bounds test.
+// Kernels write 0 to every shell and pad point they own.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace amg {
+
+constexpr int kMaxTaps = 27;
+
+// A constant stencil, passed to the kernel by value: tap k adds
+// w[k] * v[i + off[k]], where off[k] = dz*plane + dy*row + dx (|d| <= 1) is
+// the tap's linear offset in the array the kernel reads (device memory or a
+// shared-memory tile), computed on the host. Taps are summed in list order.
+template <typename T>
+struct Taps {
+  T w[kMaxTaps];
+  int off[kMaxTaps];
+  int n;
+};
+
+// Host-side: the by-value struct for the caller's (float64 weights, int
+// offsets) tap list over an array with the given plane and row strides, or
+// false when it is not a reach-1 list of at most kMaxTaps taps.
+template <typename T>
+inline bool make_taps(Taps<T>* t, const double* w, const int* dz, const int* dy,
+                      const int* dx, int n, int plane, int row) {
+  if (n < 0 || n > kMaxTaps) return false;
+  *t = Taps<T>{};
+  t->n = n;
+  for (int k = 0; k < n; ++k) {
+    if (dz[k] < -1 || dz[k] > 1 || dy[k] < -1 || dy[k] > 1 || dx[k] < -1 || dx[k] > 1)
+      return false;
+    t->w[k] = static_cast<T>(w[k]);
+    t->off[k] = dz[k] * plane + dy[k] * row + dx[k];
+  }
+  return true;
+}
+
+// sum_k w[k] * v(i + off[k]) for a value source v(linear index).
+template <typename T, typename Src>
+__device__ __forceinline__ T apply_taps(const Taps<T>& t, long long i, Src v) {
+  T acc = T(0);
+#pragma unroll
+  for (int k = 0; k < kMaxTaps; ++k) {
+    if (k < t.n) acc += t.w[k] * v(i + t.off[k]);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ bool interior(int z, int y, int x, int Z, int Y, int X) {
+  return z >= 1 && z <= Z && y >= 1 && y <= Y && x >= 1 && x <= X;
+}
+
+}  // namespace amg

@@ -1,0 +1,192 @@
+"""K1: the constant-weight stencil kernel on the padded state (counterpart of
+amg_tpu/ops/pallas_stencil.py; the CUDA kernel is `csrc/stencil.cu`).
+
+State layout: a grid of interior shape (Z, Y, X) is stored as a dense
+(Z+2, Y+2, Xr) array, Xr = X+2 rounded up to a multiple of 4 (16-byte float32
+rows). The one-cell zero shell is the homogeneous-Dirichlet truncation of the
+assembled operator and is kept by construction (every mode writes 0 off the
+interior). The reference's TPU alignment (128 lanes, Y to 8, Z to the slab)
+is not carried over, so there is no slab.
+
+`stencil_kernel_padded` launches the CUDA kernel for a CUDA tensor and runs
+the plain PyTorch version `stencil_plain` for a CPU tensor; there is no other
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from amg_tpu_torch.ops import _build
+
+MODES = ("spmv", "residual", "sweep", "sweep_vec", "sweep_vec_norm")
+_X_ALIGN = 4
+
+
+def padded_shape(grid_shape: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """(Zr, Yr, Xr) storage shape for interior grid_shape=(Z, Y, X)."""
+    Z, Y, X = grid_shape
+    return (Z + 2, Y + 2, -(-(X + 2) // _X_ALIGN) * _X_ALIGN)
+
+
+def to_padded(x: torch.Tensor, grid_shape) -> torch.Tensor:
+    """Embed a flat interior vector into the zero-shelled padded layout."""
+    Z, Y, X = grid_shape
+    Xr = padded_shape(grid_shape)[2]
+    return F.pad(x.reshape(Z, Y, X), (1, Xr - X - 1, 1, 1, 1, 1))
+
+
+def from_padded(p: torch.Tensor, grid_shape) -> torch.Tensor:
+    Z, Y, X = grid_shape
+    return p[1:Z + 1, 1:Y + 1, 1:X + 1].reshape(Z * Y * X)
+
+
+def taps_of(weights, offsets) -> tuple:
+    """((dz, dy, dx, w), ...) in the caller's order; the kernels take reach-1
+    tap lists of at most 27 taps."""
+    if len(weights) != len(offsets) or len(offsets) > 27:
+        raise ValueError(
+            f"need one weight per offset and at most 27 taps, got {len(weights)} "
+            f"weights for {len(offsets)} offsets"
+        )
+    taps = tuple(
+        (int(o[0]), int(o[1]), int(o[2]), float(w)) for o, w in zip(offsets, weights)
+    )
+    if any(max(abs(t[0]), abs(t[1]), abs(t[2])) > 1 for t in taps):
+        raise ValueError("the padded stencil kernels take reach-1 offsets only")
+    return taps
+
+
+def check_state(name: str, t, like: torch.Tensor, shape) -> None:
+    """Raise unless `t` is a contiguous tensor of `like`'s dtype and device
+    with the given padded shape."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != like.dtype or t.device != like.device:
+        raise ValueError(
+            f"{name}: dtype/device {t.dtype}/{t.device} differ from "
+            f"{like.dtype}/{like.device}"
+        )
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != padded shape {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_dtype_device(t: torch.Tensor) -> None:
+    if t.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernels take float32 or float64, got {t.dtype}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+
+
+def tap_arrays(taps):
+    """ctypes arrays (weights, dz, dy, dx) of a tap list, for the C entries."""
+    n = len(taps)
+    return (
+        (ctypes.c_double * 27)(*[t[3] for t in taps]),
+        (ctypes.c_int * 27)(*[t[0] for t in taps]),
+        (ctypes.c_int * 27)(*[t[1] for t in taps]),
+        (ctypes.c_int * 27)(*[t[2] for t in taps]),
+        n,
+    )
+
+
+def apply_plain(u_pad: torch.Tensor, taps, grid_shape) -> torch.Tensor:
+    """A u on the interior, (Z, Y, X), taps summed in list order."""
+    Z, Y, X = grid_shape
+    acc = torch.zeros((Z, Y, X), dtype=u_pad.dtype, device=u_pad.device)
+    for dz, dy, dx, w in taps:
+        acc = acc + w * u_pad[1 + dz:1 + dz + Z, 1 + dy:1 + dy + Y, 1 + dx:1 + dx + X]
+    return acc
+
+
+def stencil_plain(u_pad, b_pad, taps, grid_shape, alpha=0.0, scale_pad=None, mode="spmv"):
+    """Plain PyTorch version of K1 (same modes and outputs)."""
+    Z, Y, X = grid_shape
+    acc = apply_plain(u_pad, taps, grid_shape)
+    inner = (slice(1, Z + 1), slice(1, Y + 1), slice(1, X + 1))
+    norm = None
+    if mode == "spmv":
+        val = acc
+    elif mode == "residual":
+        val = b_pad[inner] - acc
+    elif mode == "sweep":
+        val = u_pad[inner] + alpha * (b_pad[inner] - acc)
+    elif mode == "sweep_vec":
+        val = u_pad[inner] + scale_pad[inner] * (b_pad[inner] - acc)
+    elif mode == "sweep_vec_norm":
+        r = b_pad[inner] - acc
+        val = u_pad[inner] + scale_pad[inner] * r
+        norm = torch.sum(r * r).reshape(1)
+    else:
+        raise ValueError(mode)
+    out = torch.zeros_like(u_pad)
+    out[inner] = val
+    return out if norm is None else (out, norm)
+
+
+_SIGNATURES = {
+    "amg_k1_num_partials": (ctypes.c_int, [ctypes.c_int] * 3),
+    "amg_k1_launch": (
+        ctypes.c_int,
+        [ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 8 + [ctypes.c_double, ctypes.c_void_p],
+    ),
+}
+
+
+def _launch_k1(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode):
+    lib = _build.load("stencil", _SIGNATURES)
+    Z, Y, X = grid_shape
+    Zr, Yr, Xr = u_pad.shape
+    out = torch.empty_like(u_pad)
+    partials = None
+    if mode == "sweep_vec_norm":
+        partials = torch.empty(
+            lib.amg_k1_num_partials(Zr, Yr, Xr), dtype=u_pad.dtype, device=u_pad.device
+        )
+    w, dz, dy, dx, n = tap_arrays(taps)
+    _build.launch(
+        lib.amg_k1_launch, "stencil kernel (K1)", u_pad.device,
+        int(u_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
+        _build.ptr(scale_pad), _build.ptr(out), _build.ptr(partials), w, dz, dy, dx, n,
+        Z, Y, X, Zr, Yr, Xr, MODES.index(mode), float(alpha),
+    )
+    stencil_kernel_padded.launches += 1
+    return out if partials is None else (out, partials)
+
+
+def stencil_kernel_padded(
+    u_pad, b_pad, weights, grid_shape, offsets,
+    alpha: float = 0.0, scale_pad=None, mode: str = "spmv",
+):
+    """K1 on padded-layout state (see MODES): y = A u, b - A u,
+    u + alpha (b - A u), u + s (b - A u), or the latter plus the partial sums
+    of r^2 of the incoming residual (returns (out, partials); sum them).
+    b_pad may be None in spmv mode; scale_pad is read by the _vec modes."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    taps = taps_of(weights, offsets)
+    check_dtype_device(u_pad)
+    shape = padded_shape(grid_shape)
+    check_state("u_pad", u_pad, u_pad, shape)
+    if mode != "spmv":
+        check_state("b_pad", b_pad, u_pad, shape)
+    if mode in ("sweep_vec", "sweep_vec_norm"):
+        check_state("scale_pad", scale_pad, u_pad, shape)
+    else:
+        scale_pad = None
+    if u_pad.device.type == "cpu":
+        return stencil_plain(u_pad, b_pad, taps, grid_shape, alpha, scale_pad, mode)
+    return _launch_k1(
+        u_pad, b_pad if mode != "spmv" else None, scale_pad, taps, grid_shape, alpha, mode
+    )
+
+
+stencil_kernel_padded.launches = 0

@@ -1,0 +1,225 @@
+"""K3 and K4: the fused transfer kernels (counterpart of
+amg_tpu/ops/pallas_transfer.py; the CUDA kernels are `csrc/transfer.cu`).
+
+    residual_restrict_padded:  rc = R (b - A x)           (K3)
+    prolong_sweep_padded:      u' = x + P ec;  out = u' + s (b - A u')   (K4)
+
+with x the iterate, or under `zero_guess` the zero-guess pre-sweep s*b
+(alpha*b): a coarse level's whole V(1,1) visit is one K3 and one K4 launch.
+Fine arrays are in the padded layout of `ops.stencil`, coarse arrays in the
+padded layout of the coarse grid. R is full weighting ({1/2, 1, 1/2} per axis),
+P trilinear, for the standard (s+1)//2 coarsening only.
+
+Each wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
+PyTorch version for a CPU tensor; there is no other fallback. The plain
+transfers (`restrict_padded`, `prolong_padded`) are strided slices and also
+serve the unfused branches of `solve.struct_cycle`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from amg_tpu_torch.ops import _build
+from amg_tpu_torch.ops.stencil import (
+    check_dtype_device,
+    check_state,
+    padded_shape,
+    stencil_plain,
+    tap_arrays,
+    taps_of,
+)
+
+
+def coarse_shape_of(grid_shape: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    return tuple((s + 1) // 2 for s in grid_shape)
+
+
+def transfer_fuse_ok(grid_shape, coarse_shape, offsets) -> bool:
+    """True when the fused transfer kernels apply at this level: standard
+    (s+1)//2 coarsening on every axis and a reach-1 stencil (the structural
+    conditions of the reference's transfer_fuse_ok; its slab and VMEM terms
+    are TPU tuning and have no counterpart here)."""
+    if tuple(coarse_shape) != coarse_shape_of(grid_shape):
+        return False
+    return all(max(abs(int(d)) for d in o) <= 1 for o in offsets)
+
+
+def _restrict_axis(g: torch.Tensor, axis: int, sc: int) -> torch.Tensor:
+    """Coarse interior c <- 1/2 g[2c] + g[2c+1] + 1/2 g[2c+2] along `axis`
+    (padded fine indices; the zero shell clips the edges)."""
+    g = torch.movedim(g, axis, 0)
+    out = 0.5 * g[0:2 * sc - 1:2] + g[1:2 * sc:2] + 0.5 * g[2:2 * sc + 1:2]
+    return torch.movedim(out, 0, axis)
+
+
+def _prolong_axis(g: torch.Tensor, axis: int, sf: int) -> torch.Tensor:
+    """Fine interior f <- coarse f/2 (even f) or the mean of coarse (f-1)/2 and
+    (f+1)/2 (odd f), along `axis` of a padded coarse array."""
+    g = torch.movedim(g, axis, 0)
+    ne, no = (sf + 1) // 2, sf // 2
+    out = g.new_empty((sf,) + tuple(g.shape[1:]))
+    out[0::2] = g[1:1 + ne]
+    out[1::2] = 0.5 * (g[1:1 + no] + g[2:2 + no])
+    return torch.movedim(out, 0, axis)
+
+
+def restrict_padded(r_pad: torch.Tensor, grid_shape) -> torch.Tensor:
+    """Full-weighting restriction, padded fine (zero shell) -> padded coarse."""
+    cs = coarse_shape_of(grid_shape)
+    g = r_pad
+    for d in range(3):
+        g = _restrict_axis(g, d, cs[d])
+    out = r_pad.new_zeros(padded_shape(cs))
+    out[1:cs[0] + 1, 1:cs[1] + 1, 1:cs[2] + 1] = g
+    return out
+
+
+def prolong_padded(ec_pad: torch.Tensor, grid_shape) -> torch.Tensor:
+    """Trilinear prolongation, padded coarse (zero shell) -> padded fine."""
+    Z, Y, X = grid_shape
+    g = ec_pad
+    for d in range(3):
+        g = _prolong_axis(g, d, grid_shape[d])
+    out = ec_pad.new_zeros(padded_shape(grid_shape))
+    out[1:Z + 1, 1:Y + 1, 1:X + 1] = g
+    return out
+
+
+def _zero_guess_iterate(b_pad, scale_pad, alpha):
+    """The single zero-guess pre-sweep x = s*b (alpha*b when alpha != 0)."""
+    return b_pad * scale_pad if alpha == 0.0 else alpha * b_pad
+
+
+def residual_restrict_plain(u_pad, b_pad, taps, grid_shape, zero_guess=False,
+                            scale_pad=None, alpha=0.0):
+    """Plain PyTorch version of K3."""
+    x = _zero_guess_iterate(b_pad, scale_pad, alpha) if zero_guess else u_pad
+    r_pad = stencil_plain(x, b_pad, taps, grid_shape, mode="residual")
+    return restrict_padded(r_pad, grid_shape)
+
+
+def prolong_sweep_plain(x_pad, b_pad, ec_pad, taps, grid_shape, alpha=0.0,
+                        scale_pad=None, zero_guess=False):
+    """Plain PyTorch version of K4."""
+    if zero_guess:
+        x_pad = _zero_guess_iterate(b_pad, scale_pad, alpha)
+    u2 = x_pad + prolong_padded(ec_pad, grid_shape)
+    if alpha != 0.0:
+        return stencil_plain(u2, b_pad, taps, grid_shape, alpha, None, "sweep")
+    return stencil_plain(u2, b_pad, taps, grid_shape, 0.0, scale_pad, "sweep_vec")
+
+
+_SIGNATURES = {
+    "amg_k3_launch": (
+        ctypes.c_int,
+        [ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 13 + [ctypes.c_double, ctypes.c_void_p],
+    ),
+    "amg_k4_launch": (
+        ctypes.c_int,
+        [ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 10 + [ctypes.c_double, ctypes.c_void_p],
+    ),
+}
+
+
+def _check_transfer(grid_shape, offsets):
+    if not transfer_fuse_ok(grid_shape, coarse_shape_of(grid_shape), offsets):
+        raise ValueError("fused transfers need (s+1)//2 coarsening and reach-1 taps")
+
+
+def residual_restrict_padded(
+    u_pad, b_pad, weights, grid_shape, offsets, zero_guess: bool = False,
+    scale_pad=None, alpha: float = 0.0,
+):
+    """K3: rc_pad = R (b - A u), padded fine u, b -> padded COARSE rhs.
+
+    zero_guess=True folds the single zero-guess pre-sweep in as well:
+    rc_pad = R (b - A (s b)), or A (alpha b) when alpha != 0 (u_pad is
+    ignored and may be None; scale_pad is read only when alpha == 0)."""
+    _check_transfer(grid_shape, offsets)
+    taps = taps_of(weights, offsets)
+    check_dtype_device(b_pad)
+    shape = padded_shape(grid_shape)
+    check_state("b_pad", b_pad, b_pad, shape)
+    if zero_guess:
+        u_pad = None
+        if alpha == 0.0:
+            check_state("scale_pad", scale_pad, b_pad, shape)
+        else:
+            scale_pad = None
+    else:
+        check_state("u_pad", u_pad, b_pad, shape)
+        scale_pad, alpha = None, 0.0
+    if b_pad.device.type == "cpu":
+        return residual_restrict_plain(
+            u_pad, b_pad, taps, grid_shape, zero_guess, scale_pad, alpha
+        )
+    lib = _build.load("transfer", _SIGNATURES)
+    Z, Y, X = grid_shape
+    cs = coarse_shape_of(grid_shape)
+    rc = b_pad.new_empty(padded_shape(cs))
+    w, dz, dy, dx, n = tap_arrays(taps)
+    _build.launch(
+        lib.amg_k3_launch, "residual-restrict kernel (K3)", b_pad.device,
+        int(b_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
+        _build.ptr(scale_pad), _build.ptr(rc), w, dz, dy, dx, n, Z, Y, X, shape[1],
+        shape[2], *cs, *rc.shape, int(zero_guess), float(alpha),
+    )
+    residual_restrict_padded.launches += 1
+    return rc
+
+
+residual_restrict_padded.launches = 0
+
+
+def prolong_sweep_padded(
+    x_pad, b_pad, ec_pad, weights, grid_shape, offsets,
+    alpha: float = 0.0, scale_pad=None, zero_guess: bool = False,
+):
+    """K4: one fused (prolong + correction-add + smoother sweep) pass,
+
+        u' = x + P ec;   out = u' + s (b - A u')
+
+    x_pad/b_pad in padded fine layout, ec_pad in padded COARSE layout.
+    alpha != 0 selects the scalar-weight sweep (no scale stream).
+    zero_guess=True substitutes x = s*b (or alpha*b); x_pad is ignored."""
+    _check_transfer(grid_shape, offsets)
+    taps = taps_of(weights, offsets)
+    check_dtype_device(b_pad)
+    shape = padded_shape(grid_shape)
+    check_state("b_pad", b_pad, b_pad, shape)
+    check_state("ec_pad", ec_pad, b_pad, padded_shape(coarse_shape_of(grid_shape)))
+    if zero_guess:
+        x_pad = None
+    else:
+        check_state("x_pad", x_pad, b_pad, shape)
+    if alpha == 0.0:
+        check_state("scale_pad", scale_pad, b_pad, shape)
+    else:
+        scale_pad = None
+    if b_pad.device.type == "cpu":
+        return prolong_sweep_plain(
+            x_pad, b_pad, ec_pad, taps, grid_shape, alpha, scale_pad, zero_guess
+        )
+    lib = _build.load("transfer", _SIGNATURES)
+    Z, Y, X = grid_shape
+    out = torch.empty_like(b_pad)
+    w, dz, dy, dx, n = tap_arrays(taps)
+    _build.launch(
+        lib.amg_k4_launch, "prolong-sweep kernel (K4)", b_pad.device,
+        int(b_pad.dtype == torch.float64), _build.ptr(x_pad), _build.ptr(b_pad),
+        _build.ptr(scale_pad), _build.ptr(ec_pad), _build.ptr(out), w, dz, dy, dx, n,
+        Z, Y, X, *shape, ec_pad.shape[1], ec_pad.shape[2], int(zero_guess), float(alpha),
+    )
+    prolong_sweep_padded.launches += 1
+    return out
+
+
+prolong_sweep_padded.launches = 0

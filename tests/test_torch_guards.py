@@ -1,0 +1,102 @@
+"""Rules of the PyTorch port that hold by construction: it imports neither
+JAX nor the JAX package, and its entry points never fall back to the CPU
+silently (device=None means CUDA, and raises where there is none)."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import amg_tpu_torch
+from amg_tpu_torch.ops import stencil as ts
+
+# one intra-op thread: the suite runs several worker processes at once, and
+# idle OpenMP threads spinning in each would take cores from the others
+torch.set_num_threads(1)
+
+PKG = Path(amg_tpu_torch.__file__).resolve().parent
+ROOT = PKG.parent
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import pkgutil, sys, amg_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(amg_tpu_torch.__path__, 'amg_tpu_torch.')]\n"
+        "for n in names: __import__(n)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'amg_tpu'))\n"
+        "assert len(names) >= 15, names\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+# an import of JAX, or any mention of a module of the JAX package (the port's
+# own name is removed from each line first)
+_FORBIDDEN = re.compile(r"\bimport jax|\bfrom jax|\bamg_tpu\.|\bfrom amg_tpu |\bimport amg_tpu\b")
+
+
+def test_no_source_file_names_jax_or_the_jax_package():
+    hits = []
+    for path in sorted(PKG.rglob("*")):
+        if path.suffix not in (".py", ".cu", ".cuh") or "_build" in path.parts:
+            continue
+        for lineno, line in enumerate(path.read_text().splitlines(), 1):
+            if _FORBIDDEN.search(line.replace("amg_tpu_torch", "")):
+                hits.append(f"{path.relative_to(ROOT)}:{lineno}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+    assert _FORBIDDEN.search("from amg_tpu.sparse.csr import CSRMatrix")
+    assert not _FORBIDDEN.search("from amg_tpu_torch.sparse.csr import x".replace("amg_tpu_torch", ""))
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from amg_tpu_torch.convert import hierarchy_from_arrays
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.structured import build_structured_hierarchy
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.struct_cycle import struct_solve, struct_timed_cycles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = laplacian_3d_27pt(12)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_structured_hierarchy(prob.stencil)
+    hh, hier = build_structured_hierarchy(prob.stencil, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hierarchy_from_arrays(*hh.arrays)
+    b = torch.from_numpy(np.random.default_rng(0).random(prob.n))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        struct_solve(hier, CycleConfig(), b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        struct_timed_cycles(hier, CycleConfig(), b, 2)
+    # the explicit CPU request runs the plain path
+    assert struct_solve(hier, CycleConfig(), b, device="cpu").iters > 0
+
+
+def test_a_hierarchy_on_another_device_is_refused():
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.structured import build_structured_hierarchy
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.struct_cycle import struct_solve
+
+    prob = laplacian_3d_27pt(12)
+    _, hier = build_structured_hierarchy(prob.stencil, device="cpu")
+    with pytest.raises(ValueError, match="hierarchy lives on"):
+        struct_solve(hier, CycleConfig(), torch.zeros(prob.n), device="meta")
+
+
+def test_kernel_wrappers_take_no_other_device():
+    """Only a CPU tensor gets the plain version: any other device launches
+    the kernel or raises."""
+    gs = (4, 4, 4)
+    u = torch.zeros(ts.padded_shape(gs), device="meta", dtype=torch.float32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ts.stencil_kernel_padded(u, u, (1.0,), gs, ((0, 0, 0),), mode="residual")

@@ -1,0 +1,168 @@
+"""K3 and K4 of the PyTorch port (amg_tpu_torch/ops/transfer.py) against the
+JAX package's fused Pallas transfer kernels (amg_tpu/ops/pallas_transfer.py)
+run in interpret mode on the CPU, at shapes where the JAX kernels apply
+(`transfer_fuse_ok` at slab 8).
+
+The same float64 inputs, drawn with numpy from fixed seeds, go through both.
+Tolerance: atol 1e-12 on the interior. The transfer weights are powers of two,
+so the two sides differ only in the summation order of the stencil taps.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+import amg_tpu.ops.pallas_stencil as ps
+import amg_tpu.ops.pallas_transfer as pt
+from amg_tpu.problems import laplacian_3d_27pt
+
+from amg_tpu_torch.ops import stencil as ts
+from amg_tpu_torch.ops import transfer as tt
+
+# one intra-op thread: the suite runs several worker processes at once, and
+# idle OpenMP threads spinning in each would take cores from the others
+torch.set_num_threads(1)
+
+# (grid shape, taps): both tap kinds at 16^3, the general taps on a ragged
+# shape (odd Z, Y not a power of two)
+CASES = [((16, 16, 16), "box"), ((16, 16, 16), "rap27"), ((17, 18, 16), "rap27")]
+
+
+def _taps(kind):
+    """(weights, offsets): the 27-pt box, or a general 27-tap stencil with
+    distinct weights (the shape of the RAP coarse taps)."""
+    st = laplacian_3d_27pt(4).stencil
+    if kind == "box":
+        return tuple(float(w) for w in np.asarray(st.weights)), tuple(st.offsets)
+    w = -np.random.default_rng(7).random(27)
+    w[13] = 30.0  # centre tap of the (-1, 0, 1)^3 product order
+    return tuple(float(x) for x in w), tuple(st.offsets)
+
+
+def _inputs(gs, seed):
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(gs))
+    cs = tt.coarse_shape_of(gs)
+    return (rng.random(n), rng.random(n), 0.02 + 0.01 * rng.random(n),
+            rng.random(int(np.prod(cs))))
+
+
+def _port(x, gs):
+    return ts.to_padded(torch.from_numpy(x), gs)
+
+
+def _jax(x, gs):
+    return ps.to_padded(jnp.asarray(x), gs, 8)
+
+
+def _assert_interior(got, want_jax, gs):
+    np.testing.assert_allclose(
+        ts.from_padded(got, gs).numpy(), np.asarray(ps.from_padded(want_jax, gs)),
+        rtol=0, atol=1e-12,
+    )
+    shell = got.clone()
+    Z, Y, X = gs
+    shell[1:Z + 1, 1:Y + 1, 1:X + 1] = 0
+    assert torch.count_nonzero(shell) == 0
+
+
+# (zero_guess, alpha): the iterate itself; the zero-guess pre-sweep with the
+# streamed scale; the zero-guess pre-sweep with a scalar weight
+K3_MODES = [(False, 0.0), (True, 0.0), (True, 0.021)]
+
+
+@pytest.mark.parametrize("zero_guess,alpha", K3_MODES)
+@pytest.mark.parametrize("gs,kind", CASES, ids=str)
+def test_k3_plain_matches_pallas(gs, kind, zero_guess, alpha):
+    weights, offsets = _taps(kind)
+    cs = tt.coarse_shape_of(gs)
+    assert pt.transfer_fuse_ok(gs, cs, offsets, 8)
+    u, b, s, _ = _inputs(gs, seed=11)
+    scale = None if alpha else s
+    with pltpu.force_tpu_interpret_mode():
+        want = pt.residual_restrict_padded(
+            None if zero_guess else _jax(u, gs), _jax(b, gs), weights, gs,
+            offsets, 8, zero_guess=zero_guess,
+            scale_pad=None if scale is None else _jax(scale, gs), alpha=alpha,
+        )
+    got = tt.residual_restrict_padded(
+        None if zero_guess else _port(u, gs), _port(b, gs), weights, gs,
+        offsets, zero_guess=zero_guess,
+        scale_pad=None if scale is None else _port(scale, gs), alpha=alpha,
+    )
+    assert got.shape == ts.padded_shape(cs)
+    _assert_interior(got, want, cs)
+
+
+@pytest.mark.parametrize("zero_guess", [False, True])
+@pytest.mark.parametrize("alpha", [0.0, 0.021])
+@pytest.mark.parametrize("gs,kind", CASES, ids=str)
+def test_k4_plain_matches_pallas(gs, kind, alpha, zero_guess):
+    weights, offsets = _taps(kind)
+    cs = tt.coarse_shape_of(gs)
+    u, b, s, ec = _inputs(gs, seed=12)
+    scale = None if alpha else s
+    with pltpu.force_tpu_interpret_mode():
+        want = pt.prolong_sweep_padded(
+            None if zero_guess else _jax(u, gs), _jax(b, gs), _jax(ec, cs),
+            weights, gs, offsets, alpha=alpha,
+            scale_pad=None if scale is None else _jax(scale, gs), slab=8,
+            zero_guess=zero_guess,
+        )
+    got = tt.prolong_sweep_padded(
+        None if zero_guess else _port(u, gs), _port(b, gs), _port(ec, cs),
+        weights, gs, offsets, alpha=alpha,
+        scale_pad=None if scale is None else _port(scale, gs),
+        zero_guess=zero_guess,
+    )
+    assert got.shape == ts.padded_shape(gs)
+    _assert_interior(got, want, gs)
+
+
+@pytest.mark.parametrize("gs", [(9, 10, 11), (16, 16, 16)], ids=str)
+def test_plain_transfers_match_the_transfer_matrices(gs):
+    """restrict_padded / prolong_padded are R = S^T and P = S per axis, with
+    S the 1-D matrix of amg_tpu.setup.structured._axis_transfer_np."""
+    from amg_tpu.setup.structured import _axis_transfer_np
+
+    cs = tt.coarse_shape_of(gs)
+    rng = np.random.default_rng(3)
+    r = rng.random(gs)
+    ec = rng.random(cs)
+    S = [_axis_transfer_np(f, c) for f, c in zip(gs, cs)]
+    want_r = np.einsum("abc,aA,bB,cC->ABC", r, *S)
+    want_p = np.einsum("ABC,aA,bB,cC->abc", ec, *S)
+    got_r = tt.restrict_padded(_port(r.reshape(-1), gs), gs)
+    got_p = tt.prolong_padded(_port(ec.reshape(-1), cs), gs)
+    np.testing.assert_allclose(ts.from_padded(got_r, cs).numpy(), want_r.reshape(-1),
+                               rtol=0, atol=1e-13)
+    np.testing.assert_allclose(ts.from_padded(got_p, gs).numpy(), want_p.reshape(-1),
+                               rtol=0, atol=1e-13)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    gs = (16, 16, 16)
+    weights, offsets = _taps("box")
+    u, b, s, ec = _inputs(gs, seed=0)
+    up, bp, sp_, ecp = _port(u, gs), _port(b, gs), _port(s, gs), _port(ec, (8, 8, 8))
+    with pytest.raises(ValueError, match="coarsening"):
+        tt.residual_restrict_padded(up, bp, (1.0,), gs, ((0, 0, 2),))
+    with pytest.raises(TypeError):
+        tt.residual_restrict_padded(None, bp, weights, gs, offsets)
+    with pytest.raises(TypeError):
+        tt.residual_restrict_padded(None, bp, weights, gs, offsets, zero_guess=True)
+    with pytest.raises(ValueError, match="shape"):
+        tt.prolong_sweep_padded(up, bp, ecp[:-1].contiguous(), weights, gs, offsets,
+                                scale_pad=sp_)
+    with pytest.raises(ValueError, match="dtype"):
+        tt.prolong_sweep_padded(up, bp, ecp.float(), weights, gs, offsets, scale_pad=sp_)
+    with pytest.raises(TypeError):
+        tt.prolong_sweep_padded(up, bp, ecp, weights, gs, offsets, scale_pad=None)
+    before = (tt.residual_restrict_padded.launches, tt.prolong_sweep_padded.launches)
+    tt.residual_restrict_padded(up, bp, weights, gs, offsets)
+    tt.prolong_sweep_padded(up, bp, ecp, weights, gs, offsets, scale_pad=sp_)
+    assert (tt.residual_restrict_padded.launches,
+            tt.prolong_sweep_padded.launches) == before
