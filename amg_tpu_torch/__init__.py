@@ -8,6 +8,8 @@ CUDA C++ kernel written for sm_90a (`csrc/`), built at first use by
 `ops/_build.py`, with a plain PyTorch version beside it that the CPU runs.
 
 Entry points (`setup.structured.build_structured_hierarchy`,
-`solve.struct_cycle.struct_solve`, `solve.struct_cycle.struct_timed_cycles`)
-run on the CUDA device unless the caller passes `device="cpu"`.
+`solve.struct_cycle.struct_solve`, `solve.struct_cycle.struct_timed_cycles`;
+`setup.structured.build_dia_structured_hierarchy`, `solve.mixed.mixed_pcg`
+for the elasticity path) run on the CUDA device unless the caller passes
+`device="cpu"`.
 """

@@ -7,9 +7,17 @@ reference's types reaches this module), so both packages can run on an
 identical hierarchy. Per level:
 
     {"A": {"kind": "stencil", "weights": (m,), "offsets", "grid_shape"}
-          | {"kind": "var", "coeffs": (m, *grid_shape), "offsets", "grid_shape"},
+          | {"kind": "var" | "dia", "coeffs": (m, *grid_shape), "offsets",
+             "grid_shape"},
      "sm": {"scale": (n,), "inv_wscale": (n,), "w": ()},
-     "transfer": None | {"fine_shape", "coarse_shape"}}
+     "transfer": None | {"fine_shape", "coarse_shape"[, "fine_mask",
+                         "coarse_mask"]}}
+
+"var" is the plain VarStencilOperator (reach-1 box, the coarse levels of the
+structured Laplacian hierarchy), "dia" the DiaKernelOperator of kernel K5.
+With masks (1 on free dofs, 0 on Dirichlet identity rows), P and R are
+MaskedTransfers: P = diag(fine_mask) P0 diag(coarse_mask) and R its
+transpose.
 
 plus the dense `coarse_Ainv` of the coarsest level.
 """
@@ -22,6 +30,8 @@ import torch
 from amg_tpu_torch.dtypes import resolve_device
 from amg_tpu_torch.setup.hierarchy import Hierarchy, Level
 from amg_tpu_torch.setup.structured import (
+    DiaKernelOperator,
+    MaskedTransfer,
     StructuredProlong,
     StructuredRestrict,
     VarStencilOperator,
@@ -42,11 +52,12 @@ def operator_from_arrays(A: dict, dtype, device):
             weights=_tensor(A["weights"], dtype, device),
             offsets=offsets, grid_shape=grid_shape,
         )
-    if A["kind"] == "var":
-        return VarStencilOperator(
+    if A["kind"] in ("var", "dia"):
+        vs = VarStencilOperator(
             coeffs=_tensor(A["coeffs"], dtype, device),
             offsets=offsets, grid_shape=grid_shape,
         )
+        return vs if A["kind"] == "var" else DiaKernelOperator.from_var_stencil(vs)
     raise ValueError(f"unknown operator kind {A['kind']!r}")
 
 
@@ -62,6 +73,11 @@ def hierarchy_from_arrays(levels, coarse_Ainv, dtype=torch.float64, device=None)
             cs = tuple(int(s) for s in lv["transfer"]["coarse_shape"])
             P = StructuredProlong.build(fs, cs, dtype, device)
             R = StructuredRestrict.build(fs, cs, dtype, device)
+            if "fine_mask" in lv["transfer"]:
+                fm = _tensor(lv["transfer"]["fine_mask"], dtype, device)
+                cm = _tensor(lv["transfer"]["coarse_mask"], dtype, device)
+                P = MaskedTransfer(inner=P, in_mask=cm, out_mask=fm)
+                R = MaskedTransfer(inner=R, in_mask=fm, out_mask=cm)
         out.append(
             Level(
                 A=operator_from_arrays(lv["A"], dtype, device), P=P, R=R,

@@ -43,15 +43,25 @@ inline bool make_taps(Taps<T>* t, const double* w, const int* dz, const int* dy,
   return true;
 }
 
-// sum_k w[k] * v(i + off[k]) for a value source v(linear index).
-template <typename T, typename Src>
-__device__ __forceinline__ T apply_taps(const Taps<T>& t, long long i, Src v) {
+// sum_k w[k] * v(i + off[k]) for a value source v(linear index); I is the
+// index type (64-bit for device arrays, 32-bit for a shared-memory tile).
+template <typename T, typename I, typename Src>
+__device__ __forceinline__ T apply_taps(const Taps<T>& t, I i, Src v) {
   T acc = T(0);
 #pragma unroll
   for (int k = 0; k < kMaxTaps; ++k) {
     if (k < t.n) acc += t.w[k] * v(i + t.off[k]);
   }
   return acc;
+}
+
+// One weighted-Jacobi update u + s (b - acc), acc = (A u)(p). K1's sweep modes
+// and every stage of K2 go through this function and apply_taps, so the two
+// kernels round (and contract to FMA) identically and a K2 launch equals K
+// chained K1 sweeps bit for bit.
+template <typename T>
+__device__ __forceinline__ T jacobi_update(T u, T b, T s, T acc) {
+  return u + s * (b - acc);
 }
 
 __device__ __forceinline__ bool interior(int z, int y, int x, int Z, int Y, int X) {

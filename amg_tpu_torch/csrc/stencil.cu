@@ -62,9 +62,9 @@ __global__ void __launch_bounds__(kBX* kBY, kMinBlocks)
         } else if (kMode == kResidual) {
           val = b[i] - acc;
         } else if (kMode == kSweep) {
-          val = u[i] + alpha * (b[i] - acc);
+          val = jacobi_update(u[i], b[i], alpha, acc);
         } else if (kMode == kSweepVec) {
-          val = u[i] + s[i] * (b[i] - acc);
+          val = jacobi_update(u[i], b[i], s[i], acc);
         } else {
           const T r = b[i] - acc;
           sq += r * r;

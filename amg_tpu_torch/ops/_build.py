@@ -31,7 +31,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"stencil": "stencil.cu", "transfer": "transfer.cu"}
+SOURCES = {
+    "stencil": "stencil.cu", "sweepk": "sweepk.cu", "transfer": "transfer.cu",
+    "var_stencil": "var_stencil.cu",
+}
 _HEADERS = ("common.cuh",)
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,10 @@
-"""K1: the constant-weight stencil kernel on the padded state (counterpart of
-amg_tpu/ops/pallas_stencil.py; the CUDA kernel is `csrc/stencil.cu`).
+"""K1 and K2: the constant-weight stencil kernels on the padded state
+(counterpart of amg_tpu/ops/pallas_stencil.py; the CUDA kernels are
+`csrc/stencil.cu` (K1) and `csrc/sweepk.cu` (K2)).
+
+K1 takes the modes of MODES; K2 the modes of SWEEPK_MODES, K = 2, 3 or 4
+fused weighted-Jacobi sweeps of the uniform 27-point box in one launch, equal
+to K chained K1 `sweep`/`sweep_vec` launches.
 
 State layout: a grid of interior shape (Z, Y, X) is stored as a dense
 (Z+2, Y+2, Xr) array, Xr = X+2 rounded up to a multiple of 4 (16-byte float32
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from amg_tpu_torch.ops import _build
 
 MODES = ("spmv", "residual", "sweep", "sweep_vec", "sweep_vec_norm")
+SWEEPK_MODES = tuple(f"sweep{k}{v}" for v in ("", "_vec") for k in (2, 3, 4))
 _X_ALIGN = 4
 
 
@@ -59,6 +65,25 @@ def taps_of(weights, offsets) -> tuple:
     if any(max(abs(t[0]), abs(t[1]), abs(t[2])) > 1 for t in taps):
         raise ValueError("the padded stencil kernels take reach-1 offsets only")
     return taps
+
+
+def uniform_box_weights(taps):
+    """(w_off, w_center) if taps form the full 3x3x3 box with one uniform
+    off-center weight (the 27-pt Laplacian shape); else None."""
+    if len(taps) != 27:
+        return None
+    offs = {(dz, dy, dx): w for dz, dy, dx, w in taps}
+    if len(offs) != 27 or (0, 0, 0) not in offs:
+        return None
+    w_off = None
+    for key, w in offs.items():
+        if key == (0, 0, 0):
+            continue
+        if w_off is None:
+            w_off = w
+        elif w != w_off:
+            return None
+    return w_off, offs[(0, 0, 0)]
 
 
 def check_state(name: str, t, like: torch.Tensor, shape) -> None:
@@ -130,6 +155,15 @@ def stencil_plain(u_pad, b_pad, taps, grid_shape, alpha=0.0, scale_pad=None, mod
     return out if norm is None else (out, norm)
 
 
+def sweepk_plain(u_pad, b_pad, taps, grid_shape, nsweep, alpha=0.0, scale_pad=None):
+    """Plain PyTorch version of K2: `nsweep` applications of the plain K1
+    sweep (scalar alpha) or sweep_vec (scale_pad)."""
+    mode = "sweep" if scale_pad is None else "sweep_vec"
+    for _ in range(nsweep):
+        u_pad = stencil_plain(u_pad, b_pad, taps, grid_shape, alpha, scale_pad, mode)
+    return u_pad
+
+
 _SIGNATURES = {
     "amg_k1_num_partials": (ctypes.c_int, [ctypes.c_int] * 3),
     "amg_k1_launch": (
@@ -162,14 +196,49 @@ def _launch_k1(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode):
     return out if partials is None else (out, partials)
 
 
+_K2_SIGNATURES = {
+    "amg_k2_launch": (
+        ctypes.c_int,
+        [ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 9 + [ctypes.c_double, ctypes.c_void_p],
+    ),
+}
+
+
+def _launch_k2(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, nsweep):
+    lib = _build.load("sweepk", _K2_SIGNATURES)
+    Z, Y, X = grid_shape
+    Zr, Yr, Xr = u_pad.shape
+    out = torch.empty_like(u_pad)
+    w, dz, dy, dx, n = tap_arrays(taps)
+    _build.launch(
+        lib.amg_k2_launch, "k-sweep kernel (K2)", u_pad.device,
+        int(u_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
+        _build.ptr(scale_pad), _build.ptr(out), w, dz, dy, dx, n,
+        Z, Y, X, Zr, Yr, Xr, nsweep, int(scale_pad is not None), float(alpha),
+    )
+    stencil_kernel_padded.k2_launches += 1
+    return out
+
+
 def stencil_kernel_padded(
     u_pad, b_pad, weights, grid_shape, offsets,
     alpha: float = 0.0, scale_pad=None, mode: str = "spmv",
 ):
-    """K1 on padded-layout state (see MODES): y = A u, b - A u,
-    u + alpha (b - A u), u + s (b - A u), or the latter plus the partial sums
-    of r^2 of the incoming residual (returns (out, partials); sum them).
-    b_pad may be None in spmv mode; scale_pad is read by the _vec modes."""
+    """K1 or K2 on padded-layout state.
+
+    K1 (MODES): y = A u, b - A u, u + alpha (b - A u), u + s (b - A u), or
+    the latter plus the partial sums of r^2 of the incoming residual
+    (returns (out, partials); sum them). b_pad may be None in spmv mode;
+    scale_pad is read by the _vec modes.
+
+    K2 (SWEEPK_MODES, `sweep<K>` with alpha, `sweep<K>_vec` with scale_pad):
+    K sweeps in one launch; the taps must be the uniform 27-point box (the
+    reference kernel's contract). Launches are counted in `.launches` (K1)
+    and `.k2_launches` (K2)."""
+    if mode in SWEEPK_MODES:
+        return _sweepk(u_pad, b_pad, weights, grid_shape, offsets, alpha, scale_pad, mode)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     taps = taps_of(weights, offsets)
@@ -189,4 +258,23 @@ def stencil_kernel_padded(
     )
 
 
+def _sweepk(u_pad, b_pad, weights, grid_shape, offsets, alpha, scale_pad, mode):
+    taps = taps_of(weights, offsets)
+    if uniform_box_weights(taps) is None:
+        raise ValueError(f"{mode}: the k-sweep modes need the uniform 27-point box")
+    nsweep = int(mode[5])
+    check_dtype_device(u_pad)
+    shape = padded_shape(grid_shape)
+    check_state("u_pad", u_pad, u_pad, shape)
+    check_state("b_pad", b_pad, u_pad, shape)
+    if mode.endswith("_vec"):
+        check_state("scale_pad", scale_pad, u_pad, shape)
+    else:
+        scale_pad = None
+    if u_pad.device.type == "cpu":
+        return sweepk_plain(u_pad, b_pad, taps, grid_shape, nsweep, alpha, scale_pad)
+    return _launch_k2(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, nsweep)
+
+
 stencil_kernel_padded.launches = 0
+stencil_kernel_padded.k2_launches = 0

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 
 def residual(A, u, f):
-    """r = f - A u. (The reference dispatches to a fused residual where the
-    operator has one; its only such operators are the DIA kernels of a later
-    slice.)"""
+    """r = f - A u, through the operator's fused residual where it has one
+    (the DIA device operator streams f through its K5 launch)."""
+    if hasattr(A, "residual"):
+        return A.residual(u, f)
     return f - (A @ u)

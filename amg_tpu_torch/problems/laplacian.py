@@ -27,6 +27,9 @@ class Problem:
     A: CSRMatrix
     stencil: Optional[StencilOperator]
     grid_shape: Optional[Tuple[int, ...]]
+    rhs: Optional[np.ndarray] = None  # the problem's own right-hand side
+    near_nullspace: Optional[np.ndarray] = None
+    num_functions: int = 1  # interleaved dofs per grid node
 
     @property
     def n(self) -> int:

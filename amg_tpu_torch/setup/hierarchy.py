@@ -20,9 +20,9 @@ class Level(NamedTuple):
     """One device-side level. P maps level k+1 -> k; R maps k -> k+1 (both
     None on the coarsest level)."""
 
-    A: Any  # StencilOperator | VarStencilOperator
-    P: Optional[Any]
-    R: Optional[Any]
+    A: Any  # StencilOperator | VarStencilOperator | DiaKernelOperator
+    P: Optional[Any]  # StructuredProlong | MaskedTransfer
+    R: Optional[Any]  # StructuredRestrict | MaskedTransfer
     sm: SmootherData
 
 

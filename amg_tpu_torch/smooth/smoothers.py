@@ -96,7 +96,12 @@ def smooth(
     num_sweeps: int = 1,
     zero_guess: bool = False,
 ):
-    """Run `num_sweeps` smoothing sweeps."""
+    """Run `num_sweeps` smoothing sweeps. A DIA device operator runs the whole
+    Jacobi chain itself: one pad/unpad pair and one K5 `sweep` launch per
+    sweep."""
+    if num_sweeps > 0 and hasattr(A, "fused_jacobi_sweeps"):
+        _require_ported(smoother)
+        return A.fused_jacobi_sweeps(u, f, sm.inv_wscale, num_sweeps, zero_guess=zero_guess)
     for s in range(num_sweeps):
         u = _one_sweep(A, sm, smoother, u, f, zero_guess and s == 0)
     return u

@@ -1,8 +1,9 @@
 """Multiplicative V-cycle (counterpart of amg_tpu/solve/cycles.py).
 
-This slice ports the MULT cycle: smooth -> residual -> restrict -> ... ->
-dense coarse solve -> prolong + correct -> smooth. The additive family
-(MULTADD, AFACx, AFACj, BPX, MULT_MULTADD) comes with the generic-AMG slice.
+The port has the MULT cycle: smooth -> residual -> restrict -> ... ->
+dense coarse solve -> prolong + correct -> smooth, and `cycle_step` for it.
+The additive family (MULTADD, AFACx, AFACj, BPX, MULT_MULTADD) comes with the
+generic-AMG slice; `cycle_step` raises NotImplementedError for it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ from amg_tpu_torch.smooth.smoothers import SmootherType, smooth
 
 class CycleType(enum.Enum):
     MULT = "mult"
+    MULTADD = "multadd"
+    AFACX = "afacx"
+    AFACJ = "afacj"
+    BPX = "bpx"
+    MULT_MULTADD = "mult_multadd"
 
 
 @dataclass(frozen=True)
@@ -62,3 +68,13 @@ def mult_vcycle(
         # self-adjoint, so the post-sweep is the same sweep
         xs[k] = smooth(lv.A, lv.sm, cfg.smoother, u, fs[k], num_sweeps=cfg.num_post_sweeps)
     return xs[0]
+
+
+def cycle_step(hier: Hierarchy, cfg: CycleConfig, x: torch.Tensor, b: torch.Tensor):
+    """Dispatch one cycle of the configured type."""
+    if cfg.cycle == CycleType.MULT:
+        return mult_vcycle(hier, cfg, x, b)
+    raise NotImplementedError(
+        f"cycle {cfg.cycle.value} is ported with the generic-AMG slice "
+        "(ROADMAP queue 1, item 10); the port has MULT"
+    )

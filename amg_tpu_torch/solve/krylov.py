@@ -1,0 +1,58 @@
+"""Outer PCG with any cycle as the preconditioner (counterpart of
+amg_tpu/solve/krylov.py::pcg).
+
+The preconditioner is any callable M(r) -> z, typically one V-cycle from a
+zero guess. The reference runs the loop as a `lax.while_loop` on the device;
+here it is a host loop that reads one device scalar per iteration (the
+convergence test) and keeps the recurrence, the test ||r|| / ||r0|| > tol and
+the NaN-padded history of the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class PCGResult(NamedTuple):
+    x: torch.Tensor
+    iters: int
+    rel_resnorm: torch.Tensor
+    history: torch.Tensor  # (max_iters + 1,) relative residual norms, NaN-padded
+
+
+def pcg(
+    matvec: Callable,
+    precond: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    tol: float = 1e-8,
+    max_iters: int = 100,
+) -> PCGResult:
+    r = b - matvec(x0)
+    bnorm = torch.linalg.norm(r)
+    safe_bnorm = torch.where(bnorm == 0.0, torch.ones_like(bnorm), bnorm)
+    z = precond(r)
+    p = z
+    rz = torch.dot(r, z)
+    x = x0
+    hist = torch.full((max_iters + 1,), math.nan, dtype=b.dtype, device=b.device)
+    hist[0] = 1.0
+    rel = bnorm / safe_bnorm
+    it = 0
+    while it < max_iters and bool(rel > tol):
+        Ap = matvec(p)
+        alpha = rz / torch.dot(p, Ap)
+        x = alpha * p + x
+        r = -alpha * Ap + r
+        z = precond(r)
+        rz_new = torch.dot(r, z)
+        beta = rz_new / rz
+        p = beta * p + z
+        rz = rz_new
+        rel = torch.linalg.norm(r) / safe_bnorm
+        hist[it + 1] = rel
+        it += 1
+    return PCGResult(x=x, iters=it, rel_resnorm=rel, history=hist)

@@ -2,18 +2,26 @@
 amg_tpu/solve/struct_cycle.py).
 
 The fine level's state stays in the padded layout of `ops.stencil`; its
-sweeps, residuals and the convergence norm run through K1, its transfers
-through the fused K3/K4 pair, and constant-stencil coarse levels of a V(1,1)
-cycle run their whole visit as one zero-guess K3 and one zero-guess K4 launch.
-Levels below the constant ones (VarStencil, dense coarsest) run the plain
-`mult_vcycle`. Semantics are those of `mult_vcycle` on the same hierarchy.
+sweeps, residuals and the convergence norm run through K1 (runs of 2-4 sweeps
+of the uniform 27-point box through K2), its transfers through the fused
+K3/K4 pair, and constant-stencil coarse levels of a V(1,1) cycle run their
+whole visit as one zero-guess K3 and one zero-guess K4 launch. Levels below
+the constant ones (VarStencil, dense coarsest) run the plain `mult_vcycle`.
+Semantics are those of `mult_vcycle` on the same hierarchy.
 
 Routing keeps only the structural conditions of the reference: standard
 (s+1)//2 coarsening, reach-1 taps, a constant-stencil level with a
 StructuredRestrict, and one minimum-side gate for the level-0 fused transfers
 (`_FUSE_MIN_SIDE`). At 126^3 V(1,1) that is: level 0 through non-zero-guess
 K3/K4, 63^3 and 32^3 through zero-guess K3/K4, 16^3 and below through
-mult_vcycle.
+mult_vcycle. At 126^3 V(3,3): level 0 through the K1 norm sweep, one K2
+`sweep2_vec`, K3, K4 and one K2 `sweep2_vec`; 63^3 and 32^3 (RAP taps, not the
+uniform box) through chains of K1 sweeps and the torch transfers.
+
+K2 is taken only where the taps are the uniform box. The reference takes it
+on every 27-offset level and its kernel then asserts the uniform box, so its
+struct_solve with >= 2 sweeps per side fails on a hierarchy with a constant
+RAP coarse level; here such a level chains K1, which is the same arithmetic.
 """
 
 from __future__ import annotations
@@ -25,7 +33,13 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.dtypes import resolve_device
-from amg_tpu_torch.ops.stencil import from_padded, stencil_kernel_padded, to_padded
+from amg_tpu_torch.ops.stencil import (
+    from_padded,
+    stencil_kernel_padded,
+    taps_of,
+    to_padded,
+    uniform_box_weights,
+)
 from amg_tpu_torch.ops.transfer import (
     coarse_shape_of,
     prolong_padded,
@@ -49,6 +63,7 @@ class StructKernelSpec(NamedTuple):
     grid_shape: tuple
     alpha: float  # constant smoother scale (0.0 = non-constant, use scale_pad)
     scale_pad: torch.Tensor  # inv_wscale in padded layout
+    box: bool = False  # the taps are the uniform 27-point box (K2 applies)
 
 
 def make_struct_spec(hier: Hierarchy, lvl: int = 0) -> StructKernelSpec:
@@ -60,12 +75,14 @@ def make_struct_spec(hier: Hierarchy, lvl: int = 0) -> StructKernelSpec:
     # a constant scale (weighted Jacobi on a constant-diagonal stencil) is
     # applied as the scalar alpha, which drops the scale stream
     alpha = float(iw[0]) if iw.size and np.all(iw == iw[0]) else 0.0
+    weights = tuple(float(w) for w in A.weights.detach().cpu().tolist())
     return StructKernelSpec(
-        weights=tuple(float(w) for w in A.weights.detach().cpu().tolist()),
+        weights=weights,
         offsets=A.offsets,
         grid_shape=A.grid_shape,
         alpha=alpha,
         scale_pad=to_padded(inv_wscale, A.grid_shape),
+        box=uniform_box_weights(taps_of(weights, A.offsets)) is not None,
     )
 
 
@@ -119,17 +136,23 @@ def _fine(spec, mode, u_pad, b_pad):
 
 
 def _fine_sweeps(spec, u_pad, b_pad, n: int):
-    """n smoother sweeps as n single K1 launches. The reference fuses k >= 2
-    sweeps into one launch of its k-sweep kernel (K2), which is bit-identical
-    to this chain; until K2 is ported the chain stands in for it."""
-    for _ in range(n):
-        if spec.alpha != 0.0:
-            u_pad = stencil_kernel_padded(
-                u_pad, b_pad, spec.weights, spec.grid_shape, spec.offsets,
-                alpha=spec.alpha, mode="sweep",
-            )
+    """n smoother sweeps, chained greedily as the reference does: on the
+    uniform 27-point box, K2 launches of the deepest k <= 4 sweeps left, a
+    lone last sweep as K1; on any other taps, n single K1 launches (K2 equals
+    the K1 chain, so the choice moves only the launch count)."""
+    left = n
+    while left > 0:
+        k = min(left, 4) if spec.box else 1
+        if k == 1:
+            mode = "sweep" if spec.alpha != 0.0 else "sweep_vec"
         else:
-            u_pad = _fine(spec, "sweep_vec", u_pad, b_pad)
+            mode = f"sweep{k}" + ("" if spec.alpha != 0.0 else "_vec")
+        u_pad = stencil_kernel_padded(
+            u_pad, b_pad, spec.weights, spec.grid_shape, spec.offsets,
+            alpha=spec.alpha, scale_pad=None if spec.alpha != 0.0 else spec.scale_pad,
+            mode=mode,
+        )
+        left -= k
     return u_pad
 
 

@@ -5,29 +5,54 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. toolchain: torch, CUDA, nvcc, triton; the card's name and power limit;
-  2. build: compiles every kernel of the main path from `amg_tpu_torch/csrc`;
+  2. build: compiles every kernel (K1-K5) from `amg_tpu_torch/csrc`, one nvcc
+     per source, in parallel;
   3. kernels: K1 (all five modes), K3 and K4 (both zero_guess modes, scale
      and alpha) against their plain PyTorch versions on the card, at 126^3
      and at the coarse shapes 63^3 and 32^3 with the real RAP taps, in
      float32 (max relative error <= 1e-5 on the interior) and float64
      (<= 1e-12), shells exactly 0;
-  4. main path: `struct_solve` of the 27-point Laplacian at 126^3
-     (2,000,376 dofs), V(1,1) L1-Jacobi, b = default_rng(0).random(n),
-     float32, tol 1e-5 — must take 11-13 cycles to rel_res <= 1e-4 — with
-     every kernel's launch counter set to 0 just before and read just after;
-  5. the same solve in float64 to tol 1e-8, held against the plain
-     composition (a loop of `mult_vcycle`, no custom kernel) on the card: the
-     same cycle count and x within 1e-10 relative;
-  6. timing with CUDA events: the per-cycle time of `struct_timed_cycles`
-     (slope between two cycle counts) and each kernel at its 126^3 shape,
-     beside its plain version, its DRAM byte bound and, for K1, the
-     `torch.nn.functional.conv3d` yardstick.
-The last two lines are the `kernels` JSON object and
+  4. K2: modes sweep2|3|4 and _vec at 126^3 and sweep3 at 190^3 (the JAX
+     bench's headline shape), float32 and float64, against the plain
+     version (the same tolerances) and bit for bit against K chained K1
+     launches;
+  5. main path, V(1,1): `struct_solve` of the 27-point Laplacian at 126^3
+     (2,000,376 dofs), L1-Jacobi, b = default_rng(0).random(n), float32,
+     tol 1e-5 — must take 11-13 cycles to rel_res <= 1e-4 — with every
+     kernel's launch counter set to 0 just before and read just after; the
+     same solve in float64 to tol 1e-8 against the plain composition (a
+     loop of `mult_vcycle`, no custom kernel): the same cycle count and x
+     within 1e-10 relative;
+  6. the V(3,3) path (K1, K2, K3, K4): the same problem and counters,
+     float32 to tol 1e-4 and float64 to 1e-8, each against the plain
+     composition (the same cycle count; float64 x within 1e-10), and the
+     per-cycle time of `struct_timed_cycles`;
+  7. K5: spmv, residual and sweep on the 99-diagonal elasticity operators
+     of 157,035 dofs (elasticity_beam(144, 18, 18)) and 361,875 dofs
+     (elasticity_beam(192, 24, 24)), float32 and float64, against the plain
+     version (1e-5 / 1e-12 relative, shells exactly 0), timed beside the
+     byte bound, the plain version and the cuSPARSE CSR matvec of the same
+     matrix (`torch.sparse`);
+  8. the elasticity path (K5): `build_dia_structured_hierarchy` of the 157k
+     beam in float32, `mixed_pcg` (float64 state and operator, one float32
+     V(2,2) L1-Jacobi cycle as preconditioner) to tol 1e-5 within 60
+     iterations, judged by the float64 CSR residual on the host, with the
+     counters reset just before and read just after, the device's busy time
+     and idle share from torch.profiler; then the same solve with a float64
+     preconditioner against the plain composition (K5's plain version in
+     every operator): the same iterations and x within 1e-10;
+  9. timing with CUDA events: the V(1,1) per-cycle time of
+     `struct_timed_cycles` (slope between two cycle counts) and K1, K3, K4
+     at their 126^3 shapes beside their plain versions, their DRAM byte
+     bound and, for K1, the `torch.nn.functional.conv3d` yardstick; K2 in
+     the V(3,3) path's sweep2_vec at 126^3 and sweep3 at 190^3.
+The last two lines are the `kernels` JSON object (K1-K5) and
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -42,6 +67,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
+BEAM = (144, 18, 18)  # the JAX bench's aux_dia_elasticity beam: 157,035 dofs
+BEAM_LARGE = (192, 24, 24)  # the bench's larger DIA operator: 361,875 dofs
 
 
 def log(*a):
@@ -180,19 +207,25 @@ def kernel_phase(hier64, device):
 def reset_counts():
     from amg_tpu_torch.ops.stencil import stencil_kernel_padded
     from amg_tpu_torch.ops.transfer import prolong_sweep_padded, residual_restrict_padded
+    from amg_tpu_torch.ops.var_stencil import var_stencil_kernel_padded
 
-    for fn in (stencil_kernel_padded, residual_restrict_padded, prolong_sweep_padded):
+    for fn in (stencil_kernel_padded, residual_restrict_padded, prolong_sweep_padded,
+               var_stencil_kernel_padded):
         fn.launches = 0
+    stencil_kernel_padded.k2_launches = 0
 
 
 def read_counts():
     from amg_tpu_torch.ops.stencil import stencil_kernel_padded
     from amg_tpu_torch.ops.transfer import prolong_sweep_padded, residual_restrict_padded
+    from amg_tpu_torch.ops.var_stencil import var_stencil_kernel_padded
 
     return {
         "K1": stencil_kernel_padded.launches,
+        "K2": stencil_kernel_padded.k2_launches,
         "K3": residual_restrict_padded.launches,
         "K4": prolong_sweep_padded.launches,
+        "K5": var_stencil_kernel_padded.launches,
     }
 
 
@@ -248,7 +281,6 @@ def cycle_phase(hier32, cfg, b32, device):
     profiled runs of 10 and 20 cycles (the slopes drop the per-call set-up),
     and its idle share against the host-clock slope."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from amg_tpu_torch.solve.struct_cycle import struct_timed_cycles
 
@@ -260,38 +292,13 @@ def cycle_phase(hier32, cfg, b32, device):
         return time.perf_counter() - t0
 
     k0, k1 = 10, 60
-    run(k0)
-    s0 = [run(k0) for _ in range(3)]
-    s1 = [run(k1) for _ in range(3)]
-    cycle_ms = (min(s1) - min(s0)) / (k1 - k0) * 1e3
+    cycle_ms, s0, s1 = host_slope_ms(run, k0, k1)
     log(f"per-cycle time (struct_timed_cycles slope {k0}->{k1}, float32): {cycle_ms:.4f} ms; "
         f"samples {k0}: {[round(t * 1e3, 3) for t in s0]} ms, "
         f"{k1}: {[round(t * 1e3, 3) for t in s1]} ms")
 
-    def device_times(k):
-        """{event name: (device ms, count)} of one run of k cycles: kernel and
-        memory events only (a CPU op's device time repeats its kernels)."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            struct_timed_cycles(hier32, cfg, b32, k, device=device)
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            out[e.key] = (us / 1e3, e.count)
-        return out
-
-    p0, p1 = device_times(10), device_times(20)
-    rows = []
-    for key, (ms, n) in p1.items():
-        ms0, n0 = p0.get(key, (0.0, 0))
-        rows.append(((ms - ms0) / 10, (n - n0) / 10, key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    events = sum(r[1] for r in rows)
+    busy_ms, events, rows = device_per_cycle(
+        lambda k: struct_timed_cycles(hier32, cfg, b32, k, device=device), 10, 20)
     if busy_ms > 0:
         idle = 1.0 - busy_ms / cycle_ms
         log(f"device busy per cycle (torch.profiler, slope 10->20 cycles): {busy_ms:.4f} ms "
@@ -385,6 +392,445 @@ def timing_phase(hier32, device, counts, iters):
     return results
 
 
+def box27():
+    """(weights, offsets) of the 27-point Laplacian box (the uniform box)."""
+    import itertools
+
+    offsets = tuple(itertools.product((-1, 0, 1), repeat=3))
+    return tuple(26.0 if o == (0, 0, 0) else -1.0 for o in offsets), offsets
+
+
+def k2_phase(device):
+    """K2 against its plain version and, bit for bit, against the K1 chain."""
+    import torch
+
+    from amg_tpu_torch.ops.stencil import SWEEPK_MODES, stencil_kernel_padded, sweepk_plain, taps_of
+
+    w, off = box27()
+    taps = taps_of(w, off)
+    rng = np.random.default_rng(SEED + 2)
+    errs, fails = [], []
+    alpha = 1.0 / 52.0  # the L1-Jacobi scale of the box's interior rows
+    for gs, modes in (((N_SIDE,) * 3, SWEEPK_MODES), ((190,) * 3, ("sweep3",))):
+        for dtype in (torch.float32, torch.float64):
+            dn = str(dtype).split(".")[-1]
+            u, b = rand_pad(rng, gs, dtype, device), rand_pad(rng, gs, dtype, device)
+            s = (0.5 + 0.5 * rand_pad(rng, gs, dtype, device)) / 52.0
+            for mode in modes:
+                k, vec = int(mode[5]), mode.endswith("_vec")
+                sa = s if vec else None
+                got = stencil_kernel_padded(u, b, w, gs, off, alpha=alpha, scale_pad=sa, mode=mode)
+                want = sweepk_plain(u, b, taps, gs, k, alpha, sa)
+                fails.append(compare(f"K2 {mode} {gs}", got, want, gs, dn, errs))
+                chain = u
+                for _ in range(k):
+                    chain = stencil_kernel_padded(chain, b, w, gs, off, alpha=alpha, scale_pad=sa,
+                                                  mode="sweep_vec" if vec else "sweep")
+                exact = bool(torch.equal(got, chain))
+                log(f"  K2 {mode:10s} {gs} {dn}: equal to {k} chained K1 launches: {exact}")
+                if not exact:
+                    fails.append(f"K2 {mode} {gs} {dn} differs from the K1 chain")
+    torch.cuda.synchronize()
+    return errs, [f for f in fails if f]
+
+
+def device_per_cycle(run, k0, k1):
+    """(busy ms, events, rows (ms, launches, name) by time) per cycle on the
+    device: the slope between profiled runs of run(k0) and run(k1) cycles
+    (the slope drops the per-call set-up)."""
+
+    def times(k):
+        _, _, rows = profile_device_ms(lambda: run(k))
+        return {key: (ms, n) for ms, n, key in rows}
+
+    p0, p1 = times(k0), times(k1)
+    rows = []
+    for key, (ms, n) in p1.items():
+        ms0, n0 = p0.get(key, (0.0, 0))
+        rows.append(((ms - ms0) / (k1 - k0), (n - n0) / (k1 - k0), key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
+
+
+@contextlib.contextmanager
+def k1_chain_routing():
+    """The parent slice's routing of the structured cycle: every smoothing
+    sweep one K1 launch, no K2 (the same arithmetic, more launches)."""
+    from amg_tpu_torch.solve import struct_cycle
+
+    make = struct_cycle.make_struct_spec
+    struct_cycle.make_struct_spec = lambda hier, lvl=0: make(hier, lvl)._replace(box=False)
+    try:
+        yield
+    finally:
+        struct_cycle.make_struct_spec = make
+
+
+def host_slope_ms(run, k0, k1, reps=3):
+    """(ms per unit, samples) from the host clock: best-of-reps slope of
+    run(k) between k0 and k1 (run synchronises)."""
+    run(k0)
+    s0 = [run(k0) for _ in range(reps)]
+    s1 = [run(k1) for _ in range(reps)]
+    return (min(s1) - min(s0)) / (k1 - k0) * 1e3, s0, s1
+
+
+def v33_phase(hier32, hier64, b, device):
+    """The V(3,3) structured solve, whose level-0 sweeps run through K2."""
+    import torch
+
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
+    from amg_tpu_torch.solve.struct_cycle import struct_solve, struct_timed_cycles
+
+    cfg = CycleConfig(cycle=CycleType.MULT, smoother=SmootherType.L1_JACOBI,
+                      num_pre_sweeps=3, num_post_sweeps=3)
+    b32 = torch.from_numpy(b).to(device=device, dtype=torch.float32)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = struct_solve(hier32, cfg, b32, tol=1e-4, max_cycles=40, device=device)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    _, it_p, _ = plain_solve(hier32, cfg, b32, 1e-4, 40)
+    rel = float(res.rel_resnorm)
+    log(f"V(3,3) float32 solve {N_SIDE}^3: cycles {res.iters} (plain composition {it_p}), "
+        f"rel_res {rel:.4e}, {solve_s:.3f} s; launches {counts}")
+    log("  history", [float(f"{h:.6e}") for h in res.history_list()])
+    fails = []
+    if res.iters != it_p or rel > 1e-4 or not bool(torch.isfinite(res.x).all()):
+        fails.append("V(3,3) float32 solve against the plain composition")
+    # per cycle: the norm sweep (K1) + sweep2_vec (K2) of the pre-smoother,
+    # K3, K4 and one sweep2_vec (K2) of the post-smoother; the pipelined loop
+    # runs one pre-smoother more than it has cycles
+    if counts["K2"] != 2 * res.iters + 1 or counts["K1"] < res.iters + 1:
+        fails.append(f"V(3,3) launches {counts}: K2 != 2 per cycle + 1")
+    b64 = torch.from_numpy(b).to(device)
+    res64 = struct_solve(hier64, cfg, b64, tol=1e-8, max_cycles=40, device=device)
+    x_ref, it_ref, _ = plain_solve(hier64, cfg, b64, 1e-8, 40)
+    dx = float(torch.linalg.norm(res64.x - x_ref) / torch.linalg.norm(x_ref))
+    log(f"V(3,3) float64 solve: cycles {res64.iters} (plain composition {it_ref}), rel_res "
+        f"{float(res64.rel_resnorm):.4e}, |x - x_plain|/|x_plain| {dx:.3e}")
+    if res64.iters != it_ref or dx > 1e-10 or float(res64.rel_resnorm) > 1e-8:
+        fails.append("V(3,3) float64 solve against the plain composition")
+
+    def cycles(k):
+        return struct_timed_cycles(hier32, cfg, b32, k, device=device)
+
+    def run(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cycles(k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # K2's routing against the parent slice's (every sweep a K1 launch), in
+    # one run: the host clock in turns (K2, chain, chain, K2), then the
+    # device time per cycle by kernel, and the iterates, which K2's
+    # bit-exactness against the K1 chain makes equal
+    routes = {"K2": contextlib.nullcontext, "K1 chain": k1_chain_routing}
+    host = {r: [] for r in routes}
+    for r in ("K2", "K1 chain", "K1 chain", "K2"):
+        with routes[r]():
+            ms, s0, s1 = host_slope_ms(run, 5, 25)
+        host[r].append(ms)
+        log(f"V(3,3) per-cycle time, {r} routing (struct_timed_cycles slope 5->25, float32): "
+            f"{ms:.4f} ms; samples {[round(t * 1e3, 3) for t in s0]} / "
+            f"{[round(t * 1e3, 3) for t in s1]} ms")
+    out = {"cycles": res.iters, "plain_cycles": it_p, "rel_res": rel, "counts": counts,
+           "cycles64": res64.iters, "dx64": dx}
+    xs = {}
+    for r, ctx in routes.items():
+        with ctx():
+            k2_before = read_counts()["K2"]
+            xs[r] = cycles(5)
+            k2_run = read_counts()["K2"] - k2_before
+            busy, events, rows = device_per_cycle(cycles, 5, 10)
+        log(f"V(3,3) {r} routing: device busy per cycle (torch.profiler, slope 5->10 cycles) "
+            f"{busy:.4f} ms in {events:.1f} events; host {min(host[r]):.4f} ms/cycle; "
+            f"K2 launches in 5 cycles {k2_run}")
+        for ms, n, name in rows[:8]:
+            log(f"  {ms:.4f} ms/cycle  {n:5.1f} launches/cycle  {name[:100]}")
+        key = "" if r == "K2" else "chain_"
+        out.update({f"{key}cycle_ms": min(host[r]), f"{key}device_ms": busy or None,
+                    f"{key}device_events": events or None})
+        if (k2_run == 0) == (r == "K2"):
+            fails.append(f"V(3,3) {r} routing launched K2 {k2_run} times in 5 cycles")
+    same = bool(torch.equal(xs["K2"], xs["K1 chain"]))
+    log(f"V(3,3) 5 cycles: K2 routing equal to the K1-chain routing bit for bit: {same}")
+    if not same:
+        fails.append("V(3,3) K2 routing differs from the K1-chain routing")
+    return out, fails
+
+
+def k2_timing(device):
+    """K2 in the V(3,3) path's mode (sweep2_vec at 126^3) and at the JAX
+    bench's headline (sweep3 at 190^3), float32."""
+    import torch
+
+    from amg_tpu_torch.ops.stencil import stencil_kernel_padded, sweepk_plain, taps_of
+
+    w, off = box27()
+    taps = taps_of(w, off)
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for gs, mode in (((N_SIDE,) * 3, "sweep2_vec"), ((190,) * 3, "sweep3")):
+        k, vec = int(mode[5]), mode.endswith("_vec")
+        sets = [tuple(rand_pad(rng, gs, torch.float32, device) for _ in range(3)) for _ in range(3)]
+        alpha = 1.0 / 52.0
+
+        def kern(i):
+            u, b, s = sets[i % 3]
+            return stencil_kernel_padded(u, b, w, gs, off, alpha=alpha,
+                                         scale_pad=s if vec else None, mode=mode)
+
+        def plain(i):
+            u, b, s = sets[i % 3]
+            return sweepk_plain(u, b, taps, gs, k, alpha, s if vec else None)
+
+        state_bytes = sets[0][0].numel() * 4
+        pts = int(np.prod(gs))
+        nbytes = (4 if vec else 3) * state_bytes  # u, b (s) in; out
+        flops = k * (2 * 27 + 3) * pts
+        r = dict(ms=cuda_time(kern, 30), plain_ms=cuda_time(plain, 5), library_ms=None,
+                 bytes=nbytes, flops=flops)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"K2 {mode} at {gs} float32: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library null (no one PyTorch call runs {k} Jacobi sweeps), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        out[mode] = r
+    return out
+
+
+def dia_operator(vs, dtype, device):
+    """The DiaKernelOperator of a CPU float64 VarStencilOperator on the card."""
+    from amg_tpu_torch.setup.structured import DiaKernelOperator, VarStencilOperator
+
+    return DiaKernelOperator.from_var_stencil(VarStencilOperator(
+        coeffs=vs.coeffs.to(device=device, dtype=dtype), offsets=vs.offsets,
+        grid_shape=vs.grid_shape))
+
+
+def k5_phase(device, operators):
+    """K5 against its plain version on the elasticity operators, and timed
+    beside its byte bound, its plain version and the cuSPARSE CSR matvec."""
+    import torch
+
+    from amg_tpu_torch.ops.var_stencil import (
+        MODES,
+        var_from_padded,
+        var_stencil_kernel_padded,
+        var_stencil_plain,
+        var_to_padded,
+    )
+
+    errs, fails, timings = [], [], {}
+    rng = np.random.default_rng(SEED + 4)
+    for name, (prob, vs) in operators.items():
+        gs = vs.grid_shape
+        n = prob.n
+        l1 = np.abs(prob.A.to_scipy()).sum(axis=1).A1
+        csr = prob.A.to_scipy()
+        for dtype in (torch.float32, torch.float64):
+            dn = str(dtype).split(".")[-1]
+            op = dia_operator(vs, dtype, device)
+            h, c = op.halos, op.coeffs
+
+            def pad(v):
+                return var_to_padded(torch.from_numpy(v).to(device=device, dtype=dtype), gs, h)
+
+            sets = [(pad(rng.random(n)), pad(rng.random(n))) for _ in range(3)]
+            s = pad(1.0 / l1)
+            u, b = sets[0]
+            Z, Y, X = gs
+            for mode in MODES:
+                got = var_stencil_kernel_padded(u, c, op.offsets, gs, b_pad=b, scale_pad=s, mode=mode)
+                want = var_stencil_plain(u, c, op.offsets, gs, b, s if mode == "sweep" else None, mode)
+                gi = var_from_padded(got, gs, h).double()
+                wi = var_from_padded(want, gs, h).double()
+                abs_err = float((gi - wi).abs().max())
+                rel = abs_err / max(float(wi.abs().max()), 1e-300)
+                shell = got.clone()
+                shell[h[0]:h[0] + Z, h[1]:h[1] + Y, h[2]:h[2] + X] = 0
+                shell_ok = bool(torch.count_nonzero(shell) == 0)
+                exact = bool(torch.equal(got, want))
+                ok = rel <= TOL[dn] and shell_ok and bool(torch.isfinite(gi).all())
+                errs.append((f"K5 {mode} {name}", dn, abs_err, rel, ok))
+                log(f"  K5 {mode:8s} {name} {gs} {dn} rel {rel:.3e} abs {abs_err:.3e} "
+                    f"shell0 {shell_ok} bit-equal {exact} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fails.append(f"K5 {mode} {name} {dn}")
+            # timing: three input sets cycled; the coefficient planes alone
+            # exceed the 50 MB L2 in float32 at both sizes. The bound counts
+            # the planes (m x the interior points, all of which the kernel
+            # reads) and the padded vectors (read or written whole)
+            vec_bytes = u.numel() * u.element_size()
+            pts, m = n, len(op.offsets)
+            peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+            lib_A = torch.sparse_csr_tensor(
+                torch.from_numpy(csr.indptr.astype(np.int64)),
+                torch.from_numpy(csr.indices.astype(np.int64)),
+                torch.from_numpy(csr.data), size=csr.shape,
+            ).to(device=device, dtype=dtype)
+            xs = [torch.from_numpy(rng.random(n)).to(device=device, dtype=dtype) for _ in range(3)]
+            for mode in MODES:
+                nvec = {"spmv": 2, "residual": 3, "sweep": 4}[mode]
+                nbytes = c.numel() * c.element_size() + nvec * vec_bytes
+                flops = 2 * m * pts + {"spmv": 0, "residual": 1, "sweep": 3}[mode] * pts
+                sa = s if mode == "sweep" else None
+
+                def kern(i, mode=mode, sa=sa):
+                    uu, bb = sets[i % 3]
+                    return var_stencil_kernel_padded(uu, c, op.offsets, gs, b_pad=bb,
+                                                     scale_pad=sa, mode=mode)
+
+                def plain(i, mode=mode, sa=sa):
+                    uu, bb = sets[i % 3]
+                    return var_stencil_plain(uu, c, op.offsets, gs, bb, sa, mode)
+
+                r = dict(ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 3),
+                         library_ms=None, bytes=nbytes, flops=flops)
+                if mode == "spmv":
+                    r["library_ms"] = cuda_time(lambda i: lib_A @ xs[i % 3], 20)
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+                r["bound_ms"] = max(t_bytes, t_ops)
+                r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+                log(f"K5 {mode} {name} {gs} {dn}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                    f"library (cuSPARSE CSR matvec) {lib} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}, {nbytes / 1e6:.1f} MB, m={m}, padded vectors "
+                    f"{tuple(u.shape)})")
+                timings[(mode, name, dn)] = r
+            del op, c, lib_A
+    torch.cuda.synchronize()
+    return errs, fails, timings
+
+
+def profile_device_ms(fn):
+    """(device ms, events, rows (ms, count, name) by time) of one call of fn
+    under torch.profiler: kernel and memory events only (a CPU op's device
+    time repeats its kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
+
+
+def plain_dia_hierarchy(hier):
+    """The same hierarchy with every DIA operator applying K5's plain version
+    (the plain composition of the elasticity path)."""
+    import dataclasses
+
+    from amg_tpu_torch.ops.var_stencil import var_stencil_plain
+    from amg_tpu_torch.setup.hierarchy import Hierarchy
+    from amg_tpu_torch.setup.structured import DiaKernelOperator
+
+    class PlainDia(DiaKernelOperator):
+        def _apply(self, u_pad, b_pad=None, scale_pad=None, mode="spmv"):
+            return var_stencil_plain(u_pad, self.coeffs, self.offsets, self.grid_shape,
+                                     b_pad, scale_pad, mode)
+
+    def plain(op):
+        return PlainDia(**{f.name: getattr(op, f.name) for f in dataclasses.fields(op)})
+
+    return Hierarchy(levels=tuple(lv._replace(A=plain(lv.A)) for lv in hier.levels),
+                     coarse_Ainv=hier.coarse_Ainv), plain
+
+
+def elasticity_phase(device, prob, vs):
+    """The 157k-dof elasticity solve: DIA hierarchy, mixed_pcg, K5."""
+    import torch
+
+    from amg_tpu_torch.convert import hierarchy_from_arrays
+    from amg_tpu_torch.setup.structured import build_dia_structured_hierarchy
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
+    from amg_tpu_torch.solve.mixed import mixed_pcg
+
+    nodes = tuple(c + 1 for c in BEAM)
+    t0 = time.perf_counter()
+    hh, hier32 = build_dia_structured_hierarchy(prob.A, nodes, num_functions=3,
+                                                dtype=torch.float32, device=device)
+    A64 = dia_operator(vs, torch.float64, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"elasticity {BEAM} ({prob.n} dofs, {prob.A.indptr[-1]} nnz): setup {setup_s:.2f} s; "
+        f"levels {[(lv.A.grid_shape, len(lv.A.offsets)) for lv in hier32.levels]}, "
+        f"coarsest {hier32.coarse_Ainv.shape[0]} dense")
+    cfg = CycleConfig(cycle=CycleType.MULT, smoother=SmootherType.L1_JACOBI,
+                      num_pre_sweeps=2, num_post_sweeps=2)
+    b = prob.rhs / np.linalg.norm(prob.rhs)
+
+    def solve(hier, A):
+        return mixed_pcg(hier, A, cfg, b, tol=1e-5, max_cycles=60, device=device)
+
+    # the path: counters reset just before, read just after
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(hier32, A64)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    x = res.x.cpu().numpy()
+    true_rel = float(np.linalg.norm(b - prob.A @ x) / np.linalg.norm(b))
+    it = res.iters
+    log(f"mixed_pcg float32 V(2,2) preconditioner: iterations {it}, rel_res "
+        f"{res.rel_resnorm:.4e}, true rel_res (float64 CSR) {true_rel:.4e}, solve {solve_s:.3f} s, "
+        f"{solve_s / max(it, 1) * 1e3:.3f} ms/iteration; launches {counts}, K5 per iteration "
+        f"{counts['K5'] / max(it, 1):.2f}")
+    log("  history", [float(f"{v:.4e}") for v in res.history_list()])
+    fails = []
+    if not (true_rel <= 1e-5 and it <= 60 and np.isfinite(x).all()):
+        fails.append("elasticity mixed_pcg: true residual > 1e-5 or > 60 iterations")
+    if counts["K5"] == 0:
+        fails.append("elasticity path launched no K5")
+    # a second run for the host clock, a third under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = solve(hier32, A64)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, events, rows = profile_device_ms(lambda: solve(hier32, A64))
+    idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
+    log(f"elasticity solve again: {res2.iters} iterations, {wall_ms:.3f} ms "
+        f"({wall_ms / max(res2.iters, 1):.3f} ms/iteration); device busy (torch.profiler, one "
+        f"solve) {busy_ms:.3f} ms in {events} kernel and copy events; idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    for ms, n, name in rows[:10]:
+        log(f"  {ms:.4f} ms  {n:6d} launches  {name[:100]}")
+    # float64 preconditioner against the plain composition
+    hier64 = hierarchy_from_arrays(*hh.arrays, dtype=torch.float64, device=device)
+    r64 = solve(hier64, A64)
+    plain_hier, plain = plain_dia_hierarchy(hier64)
+    rp = solve(plain_hier, plain(A64))
+    dx = float(torch.linalg.norm(r64.x - rp.x) / torch.linalg.norm(rp.x))
+    log(f"mixed_pcg float64 preconditioner: iterations {r64.iters} (plain composition "
+        f"{rp.iters}), rel_res {r64.rel_resnorm:.4e}, |x - x_plain|/|x_plain| {dx:.3e}")
+    if r64.iters != rp.iters or dx > 1e-10:
+        fails.append("elasticity float64 solve against the plain composition")
+    return {"iters": it, "rel_res": res.rel_resnorm, "true_rel_res": true_rel,
+            "setup_s": setup_s, "solve_s": solve_s, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms or None, "idle_share": idle, "counts": counts,
+            "iters64": r64.iters, "plain_iters64": rp.iters, "dx64": dx}, fails
+
+
 def main() -> int:
     import torch
 
@@ -396,12 +842,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # coarse_Ainv product, full f32
     torch.backends.cudnn.allow_tf32 = False  # conv3d yardstick in full f32
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = toolchain()
     build()
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
     from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
-    from amg_tpu_torch.setup.structured import build_structured_hierarchy
+    from amg_tpu_torch.setup.structured import build_structured_hierarchy, csr_to_dia_stencil
     from amg_tpu_torch.smooth.smoothers import SmootherType
     from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
     from amg_tpu_torch.solve.struct_cycle import struct_solve
@@ -417,6 +865,10 @@ def main() -> int:
 
     log("kernel phase:")
     errs, fails = kernel_phase(hier64, device)
+    log("K2 phase:")
+    errs2, fails2 = k2_phase(device)
+    errs += errs2
+    fails += fails2
     if fails:
         log("kernel phase FAILED:", fails)
         return 1
@@ -425,7 +877,7 @@ def main() -> int:
     b = np.random.default_rng(0).random(prob.n)
     b32 = torch.from_numpy(b).to(device=device, dtype=torch.float32)
 
-    # main path: the counts are reset just before and read just after
+    # main path, V(1,1): the counts are reset just before and read just after
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -448,7 +900,7 @@ def main() -> int:
     if not true32 <= 1e-3:
         log("float32 solve FAILED: the float64 residual of x exceeds 1e-3")
         return 1
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in ("K1", "K3", "K4")) == 0:
         log("main path FAILED: a kernel was never launched", counts)
         return 1
     if counts["K3"] != 3 * res.iters or counts["K4"] != 3 * res.iters or counts["K1"] < res.iters:
@@ -465,27 +917,67 @@ def main() -> int:
         log("float64 solve FAILED against the plain composition")
         return 1
 
+    log("V(3,3) path:")
+    v33, f33 = v33_phase(hier32, hier64, b, device)
+    if f33:
+        log("V(3,3) path FAILED:", f33)
+        return 1
+
+    log("elasticity operators:")
+    t0 = time.perf_counter()
+    operators = {}
+    for name, cells in (("157k", BEAM), ("362k", BEAM_LARGE)):
+        p_el = elasticity_beam(*cells, bc="identity")
+        operators[name] = (p_el, csr_to_dia_stencil(p_el.A, p_el.grid_shape))
+        log(f"  {name}: elasticity_beam{cells} {p_el.n} dofs, DIA grid "
+            f"{p_el.grid_shape}, {len(operators[name][1].offsets)} diagonals")
+    log(f"  generated in {time.perf_counter() - t0:.1f} s")
+    log("K5 phase:")
+    errs5, fails5, t5 = k5_phase(device, operators)
+    errs += errs5
+    if fails5:
+        log("K5 phase FAILED:", fails5)
+        return 1
+    del operators["362k"]
+    log("elasticity path:")
+    el, fel = elasticity_phase(device, *operators["157k"])
+    if fel:
+        log("elasticity path FAILED:", fel)
+        return 1
+
     cycle = cycle_phase(hier32, cfg, b32, device)
     timings = timing_phase(hier32, device, counts, res.iters)
+    t2 = k2_timing(device)
+    timings["K2"] = t2["sweep2_vec"]
+    timings["K5"] = t5[("spmv", "157k", "float64")]
+    launches = dict(counts, K2=v33["counts"]["K2"], K5=el["counts"]["K5"])
 
     sources = {
         "K1": ("amg_tpu_torch/csrc/stencil.cu", "amg_tpu/ops/pallas_stencil.py:269"),
+        "K2": ("amg_tpu_torch/csrc/sweepk.cu", "amg_tpu/ops/pallas_stencil.py:82"),
         "K3": ("amg_tpu_torch/csrc/transfer.cu", "amg_tpu/ops/pallas_transfer.py:181"),
         "K4": ("amg_tpu_torch/csrc/transfer.cu", "amg_tpu/ops/pallas_transfer.py:404"),
+        "K5": ("amg_tpu_torch/csrc/var_stencil.cu", "amg_tpu/ops/pallas_var_stencil.py:98"),
     }
+    # what each entry's time is of: K1 sweep_vec_norm, K3 and K4 at 126^3
+    # float32 (the V(1,1) path); K2 sweep2_vec at 126^3 float32 (the V(3,3)
+    # path); K5 spmv at 157k float64 (the PCG matvec of the elasticity path)
     kernels = []
     for name, (src, rep) in sources.items():
         mine = [e for e in errs if e[0].startswith(name) and e[1] == "float32"]
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts[name], "max_abs_err": max(e[2] for e in mine),
+            "launches": launches[name], "max_abs_err": max(e[2] for e in mine),
             "max_rel_err": max(e[3] for e in mine), "pass": all(e[4] for e in mine),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     log(json.dumps({"card": card, "n": prob.n, "cycles": res.iters, "rel_res": rel32,
                     **cycle}))
+    log(json.dumps({"v33": v33}))
+    log(json.dumps({"elasticity": el}))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

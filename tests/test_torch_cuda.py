@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K3 and K4 of the PyTorch port against their plain
-PyTorch versions, on the card, at ragged shapes that the 126^3 main path does
-not give them (odd sides, X not a multiple of any block width).
+"""The CUDA kernels K1 to K5 of the PyTorch port against their plain PyTorch
+versions, on the card, at ragged shapes that the main paths do not give them
+(odd sides, X not a multiple of any block width or tile), with each launch
+counted. K2 is also held bit for bit against K chained K1 launches.
 
 Marked `cuda`; without a card every test skips. On a machine with one:
 
@@ -17,6 +18,7 @@ import torch
 
 from amg_tpu_torch.ops import stencil as ts
 from amg_tpu_torch.ops import transfer as tt
+from amg_tpu_torch.ops import var_stencil as tvs
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +99,55 @@ def test_k3_k4_match_plain(device, gs, dtype):
                                           scale_pad=sa, zero_guess=zg)
             want = tt.prolong_sweep_plain(u, b, ec, taps, gs, alpha, sa, zg)
             _check(got, want, gs, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs", SHAPES, ids=str)
+def test_k2_matches_plain_and_the_k1_chain(device, gs, dtype):
+    rng = np.random.default_rng(2)
+    offs = tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    w = tuple(26.0 if o == (0, 0, 0) else -1.0 for o in offs)
+    taps = ts.taps_of(w, offs)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.03 * _pad(rng, gs, dtype, device)
+    for mode in ts.SWEEPK_MODES:
+        k, vec = int(mode[5]), mode.endswith("_vec")
+        sa = s if vec else None
+        before = ts.stencil_kernel_padded.k2_launches
+        got = ts.stencil_kernel_padded(u, b, w, gs, offs, alpha=0.03, scale_pad=sa, mode=mode)
+        assert ts.stencil_kernel_padded.k2_launches == before + 1
+        _check(got, ts.sweepk_plain(u, b, taps, gs, k, 0.03, sa), gs, dtype)
+        chain = u
+        for _ in range(k):
+            chain = ts.stencil_kernel_padded(chain, b, w, gs, offs, alpha=0.03, scale_pad=sa,
+                                             mode="sweep_vec" if vec else "sweep")
+        assert torch.equal(got, chain), mode
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs,offsets", [
+    ((7, 5, 13), ((0, 0, 0), (-1, 0, 2), (1, 1, -3), (0, -1, 1), (2, 0, 0))),
+    ((4, 9, 30), tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                       for dx in range(-5, 6))),
+], ids=["5diag", "99diag"])
+def test_k5_matches_plain(device, gs, offsets, dtype):
+    rng = np.random.default_rng(3)
+    h = tvs.halos_of(offsets)
+    n = int(np.prod(gs))
+
+    def pad(v):
+        return tvs.var_to_padded(torch.from_numpy(v).to(device=device, dtype=dtype), gs, h)
+
+    c = torch.from_numpy(rng.standard_normal((len(offsets),) + gs)).to(device=device, dtype=dtype)
+    u, b, s = pad(rng.random(n)), pad(rng.random(n)), pad(0.1 * rng.random(n))
+    for mode in tvs.MODES:
+        before = tvs.var_stencil_kernel_padded.launches
+        got = tvs.var_stencil_kernel_padded(u, c, offsets, gs, b_pad=b, scale_pad=s, mode=mode)
+        assert tvs.var_stencil_kernel_padded.launches == before + 1
+        want = tvs.var_stencil_plain(u, c, offsets, gs, b, s if mode == "sweep" else None, mode)
+        torch.cuda.synchronize()
+        gi, wi = tvs.var_from_padded(got, gs, h).double(), tvs.var_from_padded(want, gs, h).double()
+        assert float((gi - wi).abs().max()) <= TOL[dtype] * float(wi.abs().max())
+        shell = got.clone()
+        shell[h[0]:h[0] + gs[0], h[1]:h[1] + gs[1], h[2]:h[2] + gs[2]] = 0
+        assert torch.count_nonzero(shell) == 0

@@ -1,0 +1,199 @@
+"""The DIA (elasticity) path of the PyTorch port against the JAX package:
+the elasticity generator, the DIA form, kernel K5's plain version, the DIA
+structured hierarchy and one cycle on it.
+
+Tolerances: the generator and the DIA form exactly (the same float64
+host arithmetic); K5 and the cycles to atol 1e-12 relative to the largest
+value (99 products per row summed in a different order); the hierarchy's
+coefficients, smoother scales and coarse inverse to 1e-12.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+import amg_tpu.ops.pallas_var_stencil as pvs
+from amg_tpu.problems.elasticity import elasticity_beam as jax_beam
+from amg_tpu.setup import structured as jst
+from amg_tpu.smooth import SmootherType as JaxSmoother
+from amg_tpu.solve.cycles import CycleConfig as JaxCycleConfig
+from amg_tpu.solve.cycles import CycleType as JaxCycleType
+from amg_tpu.solve.cycles import cycle_step as jax_cycle_step
+from amg_tpu.solve.cycles import mult_vcycle as jax_mult_vcycle
+
+from amg_tpu_torch.ops import var_stencil as tvs
+from amg_tpu_torch.problems.elasticity import elasticity_beam
+from amg_tpu_torch.setup import structured as tst
+from amg_tpu_torch.solve.cycles import CycleConfig, CycleType, cycle_step, mult_vcycle
+
+from torch_parity import port_hierarchy
+
+# one intra-op thread: the suite runs several worker processes at once, and
+# idle OpenMP threads spinning in each would take cores from the others
+torch.set_num_threads(1)
+
+# nodes (17, 8, 8): odd axis 17 -> 9 -> 5, even axes 8 -> 5 (graded end) -> 3
+BEAM = dict(nx=16, ny=7, nz=7, bc="identity")
+NODES = (17, 8, 8)
+
+
+def _close(got, want, tol=1e-12):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * max(np.abs(want).max(), 1.0))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(nx=6, ny=3, nz=3, bc="identity"),
+    dict(nx=6, ny=3, nz=2, bc="reduce"),
+    dict(nx=8, ny=3, bc="identity"),
+], ids=["3d-identity", "3d-reduce", "2d-identity"])
+def test_elasticity_beam_equals_reference(kw):
+    got, want = elasticity_beam(**kw), jax_beam(**kw)
+    for f in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(got.A, f), getattr(want.A, f)), f
+    assert got.A.shape == want.A.shape
+    assert np.array_equal(got.rhs, want.rhs)
+    assert np.array_equal(got.near_nullspace, want.near_nullspace)
+    assert got.grid_shape == want.grid_shape and got.num_functions == want.num_functions
+
+
+def test_csr_to_dia_stencil_equals_reference():
+    prob = elasticity_beam(**BEAM)
+    got = tst.csr_to_dia_stencil(prob.A, prob.grid_shape)
+    want = jst.csr_to_dia_stencil(jax_beam(**BEAM).A, prob.grid_shape, jnp.float64)
+    assert len(got.offsets) == 99
+    assert got.offsets == want.offsets
+    assert np.array_equal(got.coeffs.numpy(), np.asarray(want.coeffs))
+
+
+@pytest.mark.parametrize("sf,sc", [(9, 5), (8, 5), (6, 4), (3, 3), (5, 3)])
+def test_axis_transfer_kinds_equal_reference(sf, sc):
+    assert np.array_equal(tst._axis_transfer_np(sf, sc), jst._axis_transfer_np(sf, sc))
+    fs, cs = (sf, 3, 2), (sc, 2, 2)
+    got, want = tst._structured_P_csr(fs, cs), jst._structured_P_csr(fs, cs)
+    assert np.array_equal(got.to_dense(), want.to_dense())
+
+
+def test_dia_hierarchy_matches_reference():
+    prob = elasticity_beam(**BEAM)
+    hh, th = tst.build_dia_structured_hierarchy(prob.A, NODES, num_functions=3, device="cpu")
+    jhh, jh = jst.build_dia_structured_hierarchy(jax_beam(**BEAM).A, NODES, num_functions=3)
+    assert [lv.A.grid_shape for lv in th.levels] == [(17, 8, 24), (9, 5, 15), (5, 3, 9)]
+    assert th.num_levels == jh.num_levels
+    rng = np.random.default_rng(0)
+    for k, (tl, jl) in enumerate(zip(th.levels, jh.levels)):
+        assert isinstance(tl.A, tst.DiaKernelOperator)
+        assert tl.A.offsets == jl.A.offsets and tl.A.grid_shape == jl.A.grid_shape
+        assert tl.A.coeffs.shape == (len(tl.A.offsets),) + tl.A.grid_shape
+        _close(tl.A.coeffs, jl.A.coeffs)
+        _close(tl.A.diagonal(), jl.A.diagonal())
+        _close(tl.sm.inv_wscale, jl.sm.inv_wscale)
+        x = rng.random(tl.A.n_rows)
+        _close(tl.A @ torch.from_numpy(x), hh.levels[k].A.to_scipy() @ x)
+        if tl.P is None:
+            assert jl.P is None
+            continue
+        assert isinstance(tl.P, tst.MaskedTransfer) and isinstance(jl.P, jst.MaskedTransfer)
+        assert tl.P.inner.fine_shape == jl.P.inner.fine_shape
+        assert tl.P.inner.coarse_shape == jl.P.inner.coarse_shape
+        assert np.array_equal(tl.P.in_mask.numpy(), np.asarray(jl.P.in_mask))
+        assert np.array_equal(tl.P.out_mask.numpy(), np.asarray(jl.P.out_mask))
+        xc, xf = rng.random(tl.P.shape[1]), rng.random(tl.P.shape[0])
+        _close(tl.P @ torch.from_numpy(xc), np.asarray(jl.P @ jnp.asarray(xc)))
+        _close(tl.R @ torch.from_numpy(xf), np.asarray(jl.R @ jnp.asarray(xf)))
+        _close(tl.P @ torch.from_numpy(xc), hh.levels[k].P.to_scipy() @ xc)
+    # the graded-end axis 8 -> 5 sits between levels 0 and 1
+    assert th.levels[0].P.inner.coarse_shape == (9, 5, 5, 3)
+    _close(th.coarse_Ainv, jh.coarse_Ainv)
+
+
+def _k5_inputs(seed):
+    prob = elasticity_beam(nx=6, ny=3, nz=3, bc="identity")
+    vs = tst.csr_to_dia_stencil(prob.A, prob.grid_shape)
+    gs = vs.grid_shape
+    rng = np.random.default_rng(seed)
+    x, b = rng.random(prob.n), rng.random(prob.n)
+    scale = 1.0 / np.abs(prob.A.to_scipy()).sum(axis=1).A1
+    return prob, vs, gs, x, b, scale
+
+
+@pytest.mark.parametrize("mode", tvs.MODES)
+def test_k5_plain_matches_pallas(mode):
+    prob, vs, gs, x, b, scale = _k5_inputs(seed=len(mode))
+    offsets = vs.offsets
+    jh = pvs.halos_of(offsets)
+    th = tvs.halos_of(offsets)
+    assert jh == th == (1, 1, 5)
+    slab = 4
+
+    def jpad(v):
+        return pvs.var_to_padded(jnp.asarray(v), gs, jh, slab)
+
+    def tpad(v):
+        return tvs.var_to_padded(torch.from_numpy(v), gs, th)
+
+    jc = pvs.coeffs_to_padded(jnp.asarray(vs.coeffs.numpy()).reshape(len(offsets), -1), gs, jh, slab)
+    tc = vs.coeffs
+    with_b = mode != "spmv"
+    with pltpu.force_tpu_interpret_mode():
+        want = pvs.var_stencil_kernel_padded(
+            jpad(x), jc, offsets, gs, b_pad=jpad(b) if with_b else None,
+            scale_pad=jpad(scale) if mode == "sweep" else None, mode=mode, slab=slab,
+        )
+    got = tvs.var_stencil_kernel_padded(
+        tpad(x), tc, offsets, gs, b_pad=tpad(b) if with_b else None,
+        scale_pad=tpad(scale) if mode == "sweep" else None, mode=mode,
+    )
+    assert got.shape == tvs.var_padded_shape(gs, th) == (gs[0] + 2, gs[1] + 2, 24)
+    _close(tvs.var_from_padded(got, gs, th), pvs.var_from_padded(want, gs, jh))
+    shell = got.clone()
+    shell[1:1 + gs[0], 1:1 + gs[1], 5:5 + gs[2]] = 0
+    assert torch.count_nonzero(shell) == 0
+
+
+def test_k5_wrapper_rejects_what_the_kernel_does_not_take():
+    prob, vs, gs, x, b, scale = _k5_inputs(seed=0)
+    h = tvs.halos_of(vs.offsets)
+    up, bp = tvs.var_to_padded(torch.from_numpy(x), gs, h), tvs.var_to_padded(torch.from_numpy(b), gs, h)
+    c = vs.coeffs
+    call = tvs.var_stencil_kernel_padded
+    with pytest.raises(ValueError, match="mode"):
+        call(up, c, vs.offsets, gs, mode="spmv_comp")
+    with pytest.raises(ValueError, match="shape"):
+        call(up, c[:-1].contiguous(), vs.offsets, gs)
+    with pytest.raises(ValueError, match="dtype"):
+        call(up, c.float(), vs.offsets, gs)
+    with pytest.raises(TypeError):
+        call(up, c, vs.offsets, gs, mode="residual")
+    before = tvs.var_stencil_kernel_padded.launches
+    got = call(up, c, vs.offsets, gs, b_pad=bp, mode="residual")
+    assert torch.equal(got, tvs.var_stencil_plain(up, c, vs.offsets, gs, b_pad=bp, mode="residual"))
+    assert tvs.var_stencil_kernel_padded.launches == before
+
+
+@pytest.mark.parametrize("pre,post", [(1, 1), (2, 2)])
+def test_dia_cycles_match_jax(pre, post):
+    _, jh = jst.build_dia_structured_hierarchy(jax_beam(**BEAM).A, NODES, num_functions=3)
+    th = port_hierarchy(jh, dia=True)
+    assert all(isinstance(lv.A, tst.DiaKernelOperator) for lv in th.levels)
+    n = th.levels[0].A.n_rows
+    rng = np.random.default_rng(pre)
+    x, b = rng.random(n), rng.random(n)
+    jcfg = JaxCycleConfig(cycle=JaxCycleType.MULT, smoother=JaxSmoother.L1_JACOBI,
+                          num_pre_sweeps=pre, num_post_sweeps=post)
+    cfg = CycleConfig(num_pre_sweeps=pre, num_post_sweeps=post)
+    want = jax_mult_vcycle(jh, jcfg, jnp.asarray(x), jnp.asarray(b))
+    _close(mult_vcycle(th, cfg, torch.from_numpy(x), torch.from_numpy(b)), want)
+    want0 = jax_cycle_step(jh, jcfg, jnp.zeros(n), jnp.asarray(b))
+    _close(cycle_step(th, cfg, torch.zeros(n, dtype=torch.float64), torch.from_numpy(b)), want0)
+
+
+def test_cycle_step_names_the_slice_of_the_other_cycles():
+    _, jh = jst.build_dia_structured_hierarchy(jax_beam(**BEAM).A, NODES, num_functions=3)
+    th = port_hierarchy(jh, dia=True)
+    b = torch.ones(th.levels[0].A.n_rows, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="generic-AMG slice"):
+        cycle_step(th, CycleConfig(cycle=CycleType.MULTADD), torch.zeros_like(b), b)
