@@ -19,6 +19,7 @@ serve the unfused branches of `solve.struct_cycle`.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -118,7 +119,7 @@ _SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 4
         + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 13 + [ctypes.c_double, ctypes.c_void_p],
+        + [ctypes.c_int] * 17 + [ctypes.c_double, ctypes.c_void_p],
     ),
     "amg_k4_launch": (
         ctypes.c_int,
@@ -127,6 +128,40 @@ _SIGNATURES = {
         + [ctypes.c_int] * 10 + [ctypes.c_double, ctypes.c_void_p],
     ),
 }
+
+
+# K3's launch plan. K3_TILE mirrors the coarse (y, x) columns of one block in
+# csrc/transfer.cu (k3BY, k3BX), which refuses a plan that does not cover the
+# padded coarse array with it. A block walks up to K3_MAX_ZCHUNK coarse
+# z-planes; the chunk is the longest that still gives K3_MIN_BLOCKS blocks
+# (two per SM of the H100's 132), else one plane.
+K3_TILE = (8, 16)
+K3_MAX_ZCHUNK = 4
+K3_MIN_BLOCKS = 2 * 132
+
+
+def k3_plan(grid_shape) -> Tuple[int, Tuple[int, int, int]]:
+    """(zchunk, (gx, gy, gz)) of K3's launch for a fine interior grid_shape:
+    block (bx, by, bz) owns the padded coarse columns bx*16 .. +15 (x) and
+    by*8 .. +7 (y) of coarse planes bz*zchunk .. +zchunk-1."""
+    Zcr, Ycr, Xcr = padded_shape(coarse_shape_of(grid_shape))
+    gx, gy = math.ceil(Xcr / K3_TILE[1]), math.ceil(Ycr / K3_TILE[0])
+    zchunk = 1
+    for zc in range(K3_MAX_ZCHUNK, 1, -1):
+        if math.ceil(Zcr / zc) * gx * gy >= K3_MIN_BLOCKS:
+            zchunk = zc
+            break
+    return zchunk, (gx, gy, math.ceil(Zcr / zchunk))
+
+
+def k3_bytes(grid_shape, dtype: torch.dtype, zero_guess: bool, scaled: bool) -> int:
+    """Bytes K3 must move, each padded stream once: u and b (or under
+    zero_guess b, and s when `scaled`) read, the padded coarse rc written."""
+    item = torch.empty((), dtype=dtype).element_size()
+    fine = math.prod(padded_shape(grid_shape))
+    coarse = math.prod(padded_shape(coarse_shape_of(grid_shape)))
+    reads = 1 + (scaled if zero_guess else 1)
+    return (reads * fine + coarse) * item
 
 
 def _check_transfer(grid_shape, offsets):
@@ -161,16 +196,21 @@ def residual_restrict_padded(
         return residual_restrict_plain(
             u_pad, b_pad, taps, grid_shape, zero_guess, scale_pad, alpha
         )
+    for name, t in (("u_pad", u_pad), ("b_pad", b_pad), ("scale_pad", scale_pad)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: K3 copies 16-byte chunks and needs a 16-byte-aligned "
+                             f"tensor (a view at an offset is not)")
     lib = _build.load("transfer", _SIGNATURES)
     Z, Y, X = grid_shape
     cs = coarse_shape_of(grid_shape)
     rc = b_pad.new_empty(padded_shape(cs))
     w, dz, dy, dx, n = tap_arrays(taps)
+    zchunk, grid = k3_plan(grid_shape)
     _build.launch(
         lib.amg_k3_launch, "residual-restrict kernel (K3)", b_pad.device,
         int(b_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
         _build.ptr(scale_pad), _build.ptr(rc), w, dz, dy, dx, n, Z, Y, X, shape[1],
-        shape[2], *cs, *rc.shape, int(zero_guess), float(alpha),
+        shape[2], *cs, *rc.shape, int(zero_guess), *grid, zchunk, float(alpha),
     )
     residual_restrict_padded.launches += 1
     return rc

@@ -44,8 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
   9. timing with CUDA events: the V(1,1) per-cycle time of
      `struct_timed_cycles` (slope between two cycle counts) and K1, K3, K4
      at their 126^3 shapes beside their plain versions, their DRAM byte
-     bound and, for K1, the `torch.nn.functional.conv3d` yardstick; K2 in
-     the V(3,3) path's sweep2_vec at 126^3 and sweep3 at 190^3.
+     bound and, for K1, the `torch.nn.functional.conv3d` yardstick; K3's
+     zero-guess launches at the path's 63^3 and 32^3 levels, with those
+     levels' RAP taps and smoother scale (`make_coarse_specs`), beside
+     their plain versions and byte bounds (b, s and rc once each,
+     `ops/transfer.py::k3_bytes`); K2 in the V(3,3) path's sweep2_vec at
+     126^3 and sweep3 at 190^3.
 The last two lines are the `kernels` JSON object (K1-K5) and
 {"ok": true, "device": {...}}.
 """
@@ -320,12 +324,13 @@ def timing_phase(hier32, device, counts, iters):
     from amg_tpu_torch.ops.stencil import stencil_kernel_padded, stencil_plain, taps_of
     from amg_tpu_torch.ops.transfer import (
         coarse_shape_of,
+        k3_bytes,
         prolong_sweep_padded,
         prolong_sweep_plain,
         residual_restrict_padded,
         residual_restrict_plain,
     )
-    from amg_tpu_torch.solve.struct_cycle import make_struct_spec
+    from amg_tpu_torch.solve.struct_cycle import make_coarse_specs, make_struct_spec
 
     spec = make_struct_spec(hier32)
     gs, w, off = spec.grid_shape, spec.weights, spec.offsets
@@ -362,14 +367,13 @@ def timing_phase(hier32, device, counts, iters):
         library_ms=cuda_time(lambda i: F.conv3d(sets[i % 4][0][None, None], box), 50),
         bytes=k1_bytes, flops=k1_flops,
     )
-    k3_bytes = 2 * state_bytes + coarse_bytes  # u, b in; rc out
     k3_flops = 2 * nt * pts + pts + 2 * 27 * int(np.prod(cs))
     results["K3"] = dict(
         ms=cuda_time(lambda i: residual_restrict_padded(
             sets[i % 4][0], sets[i % 4][1], w, gs, off), 50),
         plain_ms=cuda_time(lambda i: residual_restrict_plain(
             sets[i % 4][0], sets[i % 4][1], taps, gs), 10),
-        library_ms=None, bytes=k3_bytes, flops=k3_flops,
+        library_ms=None, bytes=k3_bytes(gs, torch.float32, False, False), flops=k3_flops,
     )
     k4_bytes = 4 * state_bytes + coarse_bytes  # x, b, s, ec in; out
     k4_flops = 2 * nt * pts + 4 * pts + 2 * 8 * pts
@@ -389,6 +393,26 @@ def timing_phase(hier32, device, counts, iters):
         log(f"{name} at {gs} float32: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{r['bytes'] / 1e6:.1f} MB), launches/cycle {counts[name] / iters:.3f}")
+    # K3's zero-guess launches: each coarse level's down-visit, fed its rhs
+    # (here random) with the level's own taps and scale, as the path runs it
+    for lvl, cspec in sorted(make_coarse_specs(hier32).items()):
+        cgs, cw, coff = cspec.grid_shape, cspec.weights, cspec.offsets
+        sa = None if cspec.alpha != 0.0 else cspec.scale_pad
+        bsets = [rand_pad(rng, cgs, torch.float32, device) for _ in range(4)]
+        nbytes = k3_bytes(cgs, torch.float32, True, sa is not None)
+        r = dict(
+            ms=cuda_time(lambda i: residual_restrict_padded(
+                None, bsets[i % 4], cw, cgs, coff, zero_guess=True, scale_pad=sa,
+                alpha=cspec.alpha), 50),
+            plain_ms=cuda_time(lambda i: residual_restrict_plain(
+                None, bsets[i % 4], taps_of(cw, coff), cgs, True, sa, cspec.alpha), 10),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
+        )
+        results[f"K3 zero-guess level {lvl}"] = r
+        log(f"K3 zero-guess level {lvl} at {cgs} float32 ({'scale' if sa is not None else 'alpha'}"
+            f", {len(coff)} RAP taps): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.3f} MB: b, "
+            f"{'s, ' if sa is not None else ''}rc once each)")
     return results
 
 

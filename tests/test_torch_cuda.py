@@ -101,6 +101,51 @@ def test_k3_k4_match_plain(device, gs, dtype):
             _check(got, want, gs, dtype)
 
 
+# K3's launch plan at its edges: a coarse side smaller than one 16x8 tile;
+# odd and even sides mixed; 4-plane z-chunks that do not divide the 33
+# padded coarse planes (coarse 31 x 48 x 64); the main path's zero-guess
+# shapes 63^3 and 32^3 (one-plane chunks)
+K3_EDGE_SHAPES = [(3, 4, 5), (32, 33, 31), (61, 96, 128), (63, 63, 63), (32, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs", K3_EDGE_SHAPES, ids=str)
+def test_k3_matches_plain_at_plan_edges(device, gs, dtype):
+    if gs == (61, 96, 128):
+        zchunk, (_, _, gz) = tt.k3_plan(gs)
+        assert zchunk > 1 and gz * zchunk != ts.padded_shape(tt.coarse_shape_of(gs))[0]
+    rng = np.random.default_rng(4)
+    w, offs = _taps(5)  # 27 distinct taps, the shape of the RAP coarse taps
+    taps = ts.taps_of(w, offs)
+    cs = tt.coarse_shape_of(gs)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.02 * _pad(rng, gs, dtype, device)
+    for zg, alpha in ((False, 0.0), (True, 0.0), (True, 0.03)):
+        sa = None if alpha else s
+        before = tt.residual_restrict_padded.launches
+        got = tt.residual_restrict_padded(u, b, w, gs, offs, zero_guess=zg,
+                                          scale_pad=sa, alpha=alpha)
+        assert tt.residual_restrict_padded.launches == before + 1
+        want = tt.residual_restrict_plain(u, b, taps, gs, zg, sa, alpha)
+        _check(got, want, cs, dtype)
+
+
+def test_k3_refuses_a_misaligned_view(device):
+    """K3 copies 16-byte chunks: a view at an offset that breaks the
+    alignment raises, and nothing is launched."""
+    gs = (8, 8, 8)
+    w, offs = _taps(5)
+    shape = ts.padded_shape(gs)
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 1, device=device)
+    b = flat[1:].view(shape)
+    u = torch.zeros(shape, device=device)
+    before = tt.residual_restrict_padded.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tt.residual_restrict_padded(u, b, w, gs, offs)
+    assert tt.residual_restrict_padded.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 @pytest.mark.parametrize("gs", SHAPES, ids=str)
 def test_k2_matches_plain_and_the_k1_chain(device, gs, dtype):

@@ -166,3 +166,52 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     tt.prolong_sweep_padded(up, bp, ecp, weights, gs, offsets, scale_pad=sp_)
     assert (tt.residual_restrict_padded.launches,
             tt.prolong_sweep_padded.launches) == before
+
+
+@pytest.mark.parametrize("dtype,zero_guess,scaled,want", [
+    # 126^3: padded fine (128, 128, 128), padded coarse (65, 65, 68)
+    (torch.float32, False, False, (2 * 128 * 128 * 128 + 65 * 65 * 68) * 4),
+    (torch.float64, False, False, (2 * 128 * 128 * 128 + 65 * 65 * 68) * 8),
+    # 63^3 zero-guess: padded fine (65, 65, 68), padded coarse (34, 34, 36)
+    (torch.float32, True, True, (2 * 65 * 65 * 68 + 34 * 34 * 36) * 4),
+    (torch.float32, True, False, (65 * 65 * 68 + 34 * 34 * 36) * 4),
+], ids=["126-f32", "126-f64", "63-zg-scale", "63-zg-alpha"])
+def test_k3_bytes_counts_each_padded_stream_once(dtype, zero_guess, scaled, want):
+    gs = (126,) * 3 if not zero_guess else (63,) * 3
+    assert tt.k3_bytes(gs, dtype, zero_guess, scaled) == want
+    if gs == (126,) * 3 and dtype == torch.float32:
+        assert round(want / 1e6, 1) == 17.9
+
+
+@pytest.mark.parametrize("gs", [(126, 126, 126), (63, 63, 63), (32, 32, 32), (3, 4, 5),
+                                (32, 33, 31), (61, 96, 128)], ids=str)
+def test_k3_plan_covers_every_coarse_point_once(gs):
+    """Every padded coarse point lies in exactly one block's (x, y) tile and
+    z-chunk; the grid has >= 2 x 132 blocks wherever the coarse grid allows
+    it with one-plane chunks."""
+    zchunk, (gx, gy, gz) = tt.k3_plan(gs)
+    Zcr, Ycr, Xcr = ts.padded_shape(tt.coarse_shape_of(gs))
+    ty, tx = tt.K3_TILE
+    assert 1 <= zchunk <= tt.K3_MAX_ZCHUNK
+    cover = np.zeros((gz * zchunk, gy * ty, gx * tx), dtype=int)
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                cover[bz * zchunk:(bz + 1) * zchunk, by * ty:(by + 1) * ty,
+                      bx * tx:(bx + 1) * tx] += 1
+    assert (cover == 1).all()
+    # no block lies wholly outside the padded coarse array
+    assert (gx - 1) * tx < Xcr and (gy - 1) * ty < Ycr and (gz - 1) * zchunk < Zcr
+    assert gx * tx >= Xcr and gy * ty >= Ycr and gz * zchunk >= Zcr
+    one_plane = Zcr * gx * gy
+    assert gx * gy * gz >= min(tt.K3_MIN_BLOCKS, one_plane)
+
+
+def test_k3_plan_at_the_main_path_shapes():
+    # 126^3: 4-plane chunks, 765 blocks; 63^3: one-plane chunks, 510 blocks
+    # (>= 264); 32^3: the coarse grid allows 108 blocks at most
+    assert tt.k3_plan((126,) * 3) == (4, (5, 9, 17))
+    assert tt.k3_plan((63,) * 3) == (1, (3, 5, 34))
+    assert tt.k3_plan((32,) * 3) == (1, (2, 3, 18))
+    zchunk, (gx, gy, gz) = tt.k3_plan((63,) * 3)
+    assert gx * gy * gz >= 264
