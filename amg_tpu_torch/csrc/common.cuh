@@ -55,13 +55,45 @@ __device__ __forceinline__ T apply_taps(const Taps<T>& t, I i, Src v) {
   return acc;
 }
 
-// One weighted-Jacobi update u + s (b - acc), acc = (A u)(p). K1's sweep modes
-// and every stage of K2 go through this function and apply_taps, so the two
-// kernels round (and contract to FMA) identically and a K2 launch equals K
-// chained K1 sweeps bit for bit.
+// One weighted-Jacobi update u + s (b - acc), acc = (A u)(p), for the tap-list
+// kernels (K1's general route; the box route and K2 use jacobi_update_rn).
 template <typename T>
 __device__ __forceinline__ T jacobi_update(T u, T b, T s, T acc) {
   return u + s * (b - acc);
+}
+
+// Separately rounded arithmetic: the compiler may not contract these into an
+// FMA, so every kernel that builds a point from them rounds exactly as the
+// source reads, and as PyTorch's elementwise ops in the plain version do.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// The uniform 27-point box, A u = w_off * boxsum(u) + (w_c - w_off) * u, with
+// the box summed as the reference's kernel sums it
+// (amg_tpu/ops/pallas_stencil.py, box_apply and the box fast path of
+// _sweep_kernel): first along z as (m + c) + p (add_rn twice; the box march
+// keeps each point's pair m + c in a register from one plane to the next),
+// then along y and then x, each as (c + m) + p, where m, c, p are the values
+// at offset -1, 0, +1.
+template <typename T>
+__device__ __forceinline__ T box_axis_sum(T c, T m, T p) {
+  return add_rn(add_rn(c, m), p);
+}
+
+// w_off * boxsum + w_cm * u, w_cm = w_c - w_off (formed on the host in float64)
+template <typename T>
+__device__ __forceinline__ T box_combine(T w_off, T w_cm, T boxsum, T u) {
+  return add_rn(mul_rn(w_off, boxsum), mul_rn(w_cm, u));
+}
+
+// u + s (b - acc), each operation rounded on its own
+template <typename T>
+__device__ __forceinline__ T jacobi_update_rn(T u, T b, T s, T acc) {
+  return add_rn(u, mul_rn(s, sub_rn(b, acc)));
 }
 
 __device__ __forceinline__ bool interior(int z, int y, int x, int Z, int Y, int X) {

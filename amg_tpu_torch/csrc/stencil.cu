@@ -1,7 +1,9 @@
-// K1: the constant-weight stencil kernel on the padded state.
+// K1: the constant-weight stencil kernel on the padded state, for any reach-1
+// tap list but the uniform 27-point box (the RAP coarse levels); the box goes
+// to csrc/box_march.cu.
 //
-// Replaces amg_tpu/ops/pallas_stencil.py::_sweep_kernel (entry
-// stencil_kernel_padded). Modes, at every interior point p (shell -> 0):
+// Replaces amg_tpu/ops/pallas_stencil.py::_sweep_kernel's tap-list path
+// (entry stencil_kernel_padded). Modes, at every interior point p (shell -> 0):
 //   0 spmv            out = A u
 //   1 residual        out = b - A u
 //   2 sweep           out = u + alpha (b - A u)
@@ -11,9 +13,10 @@
 //                     caller sums the partials with torch.sum (deterministic,
 //                     no float atomics).
 //
-// Bound on the H100: bytes. sweep_vec_norm reads u, b, s and writes out, four
-// state arrays (4 x 8.4 MB in float32 at 126^3 in this layout), about 10 us at
-// 3.35 TB/s; its 27 FMAs per point are ~1.7 us of float32 issue. Design: one
+// Bound on the H100: bytes. sweep_vec reads u, b, s and writes out, four state
+// arrays: at the RAP level 63^3 in float32 4 x 1.15 MB in this layout, about
+// 1.4 us at 3.35 TB/s (32^3: 0.2 us), so the launch itself is the floor there;
+// its 27 FMAs per point are ~0.2 us of float32 arithmetic. Design: one
 // thread per output point, x fastest across the warp (coalesced rows), a
 // 32x4 (x, y) block walking 8 z-rows, the mode a template parameter, the 27
 // taps (weights and linear offsets) passed by value and the neighbour reads

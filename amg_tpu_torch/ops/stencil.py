@@ -1,10 +1,17 @@
 """K1 and K2: the constant-weight stencil kernels on the padded state
-(counterpart of amg_tpu/ops/pallas_stencil.py; the CUDA kernels are
-`csrc/stencil.cu` (K1) and `csrc/sweepk.cu` (K2)).
+(counterpart of amg_tpu/ops/pallas_stencil.py). Their CUDA kernels:
+`csrc/box_march.cu` for the uniform 27-point box (K1's modes at K = 1, K2's
+at K = 2..4: one z-marching template) and `csrc/stencil.cu` for K1 on any
+other reach-1 tap list (the RAP coarse levels).
 
 K1 takes the modes of MODES; K2 the modes of SWEEPK_MODES, K = 2, 3 or 4
 fused weighted-Jacobi sweeps of the uniform 27-point box in one launch, equal
-to K chained K1 `sweep`/`sweep_vec` launches.
+to K chained K1 `sweep`/`sweep_vec` launches bit for bit.
+
+The uniform box is summed separably, as the reference's kernels sum it:
+A u = w_off * boxsum(u) + (w_c - w_off) * u, the box sum along z as
+(m + c) + p, then along y and x as (c + m) + p. Every other tap list is
+summed in list order.
 
 State layout: a grid of interior shape (Z, Y, X) is stored as a dense
 (Z+2, Y+2, Xr) array, Xr = X+2 rounded up to a multiple of 4 (16-byte float32
@@ -21,6 +28,7 @@ fallback.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -122,8 +130,17 @@ def tap_arrays(taps):
 
 
 def apply_plain(u_pad: torch.Tensor, taps, grid_shape) -> torch.Tensor:
-    """A u on the interior, (Z, Y, X), taps summed in list order."""
+    """A u on the interior, (Z, Y, X): the uniform box separably (see the
+    module's docstring), any other taps in list order."""
     Z, Y, X = grid_shape
+    box = uniform_box_weights(taps)
+    if box is not None:
+        w_off, w_c = box
+        u = u_pad[:, :, :X + 2]
+        t = (u[0:Z] + u[1:Z + 1]) + u[2:Z + 2]
+        t = (t[:, 1:Y + 1] + t[:, 0:Y]) + t[:, 2:Y + 2]
+        t = (t[..., 1:X + 1] + t[..., 0:X]) + t[..., 2:X + 2]
+        return w_off * t + (w_c - w_off) * u[1:Z + 1, 1:Y + 1, 1:X + 1]
     acc = torch.zeros((Z, Y, X), dtype=u_pad.dtype, device=u_pad.device)
     for dz, dy, dx, w in taps:
         acc = acc + w * u_pad[1 + dz:1 + dz + Z, 1 + dy:1 + dy + Y, 1 + dx:1 + dx + X]
@@ -175,7 +192,75 @@ _SIGNATURES = {
 }
 
 
+# The box march's launch plan. BOX_TILE mirrors the (y, x) output tile of one
+# block in csrc/box_march.cu (kTY, kTX), which refuses a plan that does not
+# cover the padded array with it. The planes go in the fewest chunks (each
+# at most BOX_MAX_ZCHUNK planes) that keep the blocks within
+# box_max_blocks(K): eight per SM of the H100's 132 at K = 1, four at K >= 2,
+# about as many as the card holds at once (the blocks at K >= 2 hold more
+# rings and registers). More blocks than that run as a partial second wave,
+# and fewer, longer chunks leave the SMs short of warps; each chunk also
+# warms up over 3(K-1) extra planes. Measured with tools/torch_box_variants.py.
+BOX_TILE = (8, 32)
+BOX_MAX_ZCHUNK = 32
+
+
+def box_max_blocks(nsweep: int) -> int:
+    return (8 if nsweep == 1 else 4) * 132
+
+
+def box_plan(grid_shape, nsweep: int = 1) -> Tuple[int, Tuple[int, int, int]]:
+    """(zchunk, (gx, gy, gz)) of the box march of `nsweep` sweeps for interior
+    grid_shape: block (bx, by, bz) owns the padded columns bx*32 .. +31 (x)
+    and by*8 .. +7 (y) of planes bz*zchunk .. +zchunk-1."""
+    Zr, Yr, Xr = padded_shape(grid_shape)
+    gx, gy = math.ceil(Xr / BOX_TILE[1]), math.ceil(Yr / BOX_TILE[0])
+    chunks = max(1, box_max_blocks(nsweep) // (gx * gy))
+    zchunk = min(BOX_MAX_ZCHUNK, math.ceil(Zr / chunks))
+    return zchunk, (gx, gy, math.ceil(Zr / zchunk))
+
+
+_BOX_SIGNATURES = {
+    "amg_box_launch": (
+        ctypes.c_int,
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_double] * 3
+        + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+    ),
+}
+
+
+def _launch_box(u_pad, b_pad, scale_pad, box, grid_shape, alpha, mode, nsweep, plan=None):
+    """The box march: K1 `mode` (nsweep 1) or K2 (nsweep 2..4, mode sweep or
+    sweep_vec) on the uniform box (w_off, w_c), under box_plan's plan unless
+    `plan` is given."""
+    for name, t in (("u_pad", u_pad), ("b_pad", b_pad), ("scale_pad", scale_pad)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the box march copies 16-byte chunks and needs a "
+                             f"16-byte-aligned tensor (a view at an offset is not)")
+    lib = _build.load("box_march", _BOX_SIGNATURES)
+    Z, Y, X = grid_shape
+    zchunk, grid = box_plan(grid_shape, nsweep) if plan is None else plan
+    out = torch.empty_like(u_pad)
+    partials = None
+    if mode == "sweep_vec_norm":
+        partials = u_pad.new_empty(math.prod(grid))
+    w_off, w_c = box
+    _build.launch(
+        lib.amg_box_launch, "box march (K1/K2)", u_pad.device,
+        int(u_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
+        _build.ptr(scale_pad), _build.ptr(out), _build.ptr(partials), float(w_off),
+        float(w_c - w_off), float(alpha), Z, Y, X, *u_pad.shape, nsweep, MODES.index(mode),
+        *grid, zchunk,
+    )
+    return out if partials is None else (out, partials)
+
+
 def _launch_k1(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode):
+    box = uniform_box_weights(taps)
+    if box is not None:
+        out = _launch_box(u_pad, b_pad, scale_pad, box, grid_shape, alpha, mode, 1)
+        stencil_kernel_padded.launches += 1
+        return out
     lib = _build.load("stencil", _SIGNATURES)
     Z, Y, X = grid_shape
     Zr, Yr, Xr = u_pad.shape
@@ -196,28 +281,10 @@ def _launch_k1(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode):
     return out if partials is None else (out, partials)
 
 
-_K2_SIGNATURES = {
-    "amg_k2_launch": (
-        ctypes.c_int,
-        [ctypes.c_int] + [ctypes.c_void_p] * 4
-        + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 9 + [ctypes.c_double, ctypes.c_void_p],
-    ),
-}
-
-
 def _launch_k2(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, nsweep):
-    lib = _build.load("sweepk", _K2_SIGNATURES)
-    Z, Y, X = grid_shape
-    Zr, Yr, Xr = u_pad.shape
-    out = torch.empty_like(u_pad)
-    w, dz, dy, dx, n = tap_arrays(taps)
-    _build.launch(
-        lib.amg_k2_launch, "k-sweep kernel (K2)", u_pad.device,
-        int(u_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
-        _build.ptr(scale_pad), _build.ptr(out), w, dz, dy, dx, n,
-        Z, Y, X, Zr, Yr, Xr, nsweep, int(scale_pad is not None), float(alpha),
-    )
+    mode = "sweep" if scale_pad is None else "sweep_vec"
+    out = _launch_box(u_pad, b_pad, scale_pad, uniform_box_weights(taps), grid_shape,
+                      alpha, mode, nsweep)
     stencil_kernel_padded.k2_launches += 1
     return out
 

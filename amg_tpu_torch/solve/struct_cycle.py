@@ -3,7 +3,7 @@ amg_tpu/solve/struct_cycle.py).
 
 The fine level's state stays in the padded layout of `ops.stencil`; its
 sweeps, residuals and the convergence norm run through K1 (runs of 2-4 sweeps
-of the uniform 27-point box through K2), its transfers through the fused
+of the uniform 27-point box through K2 on the CPU), its transfers through the fused
 K3/K4 pair, and constant-stencil coarse levels of a V(1,1) cycle run their
 whole visit as one zero-guess K3 and one zero-guess K4 launch. Levels below
 the constant ones (VarStencil, dense coarsest) run the plain `mult_vcycle`.
@@ -11,12 +11,14 @@ Semantics are those of `mult_vcycle` on the same hierarchy.
 
 Routing keeps only the structural conditions of the reference: standard
 (s+1)//2 coarsening, reach-1 taps, a constant-stencil level with a
-StructuredRestrict, and one minimum-side gate for the level-0 fused transfers
-(`_FUSE_MIN_SIDE`). At 126^3 V(1,1) that is: level 0 through non-zero-guess
-K3/K4, 63^3 and 32^3 through zero-guess K3/K4, 16^3 and below through
-mult_vcycle. At 126^3 V(3,3): level 0 through the K1 norm sweep, one K2
-`sweep2_vec`, K3, K4 and one K2 `sweep2_vec`; 63^3 and 32^3 (RAP taps, not the
-uniform box) through chains of K1 sweeps and the torch transfers.
+StructuredRestrict, one minimum-side gate for the level-0 fused transfers
+(`_FUSE_MIN_SIDE`) and the choice of K2 for runs of box sweeps (`_k2_pays`:
+not on the card, where chained K1 launches are faster). At 126^3 V(1,1)
+that is: level 0 through non-zero-guess K3/K4, 63^3 and 32^3 through
+zero-guess K3/K4, 16^3 and below through mult_vcycle. At 126^3 V(3,3) on the
+card: level 0 through the K1 norm sweep and two K1 sweeps, K3, K4 and two K1
+sweeps; 63^3 and 32^3 (RAP taps, not the uniform box) through chains of K1
+sweeps and the torch transfers.
 
 K2 is taken only where the taps are the uniform box. The reference takes it
 on every 27-offset level and its kernel then asserts the uniform box, so its
@@ -135,14 +137,27 @@ def _fine(spec, mode, u_pad, b_pad):
     )
 
 
+def _k2_pays(u_pad) -> bool:
+    """True when runs of box sweeps go through K2 on this state. On the card
+    they do not: on the H100 a chain of K1 box-march launches is faster than
+    the K2 launch of the same sweeps in the cycle (126^3, float32 and
+    float64) and alone (126^3 and 190^3 with three sweeps), because the
+    march is bound by its steps, not its bytes, and K2 recomputes its halo
+    and warms up at every chunk (PERF.md). On the CPU, where the plain
+    versions run either way, K2 is taken as the reference takes it."""
+    return u_pad.device.type != "cuda"
+
+
 def _fine_sweeps(spec, u_pad, b_pad, n: int):
     """n smoother sweeps, chained greedily as the reference does: on the
-    uniform 27-point box, K2 launches of the deepest k <= 4 sweeps left, a
-    lone last sweep as K1; on any other taps, n single K1 launches (K2 equals
-    the K1 chain, so the choice moves only the launch count)."""
+    uniform 27-point box where K2 pays (`_k2_pays`), K2 launches of the
+    deepest k <= 4 sweeps left, a lone last sweep as K1; otherwise n single K1
+    launches (K2 equals the K1 chain bit for bit, so the choice moves only
+    the launch count and the time)."""
     left = n
+    fuse = spec.box and _k2_pays(u_pad)
     while left > 0:
-        k = min(left, 4) if spec.box else 1
+        k = min(left, 4) if fuse else 1
         if k == 1:
             mode = "sweep" if spec.alpha != 0.0 else "sweep_vec"
         else:

@@ -9,13 +9,15 @@ Phases (any failure exits non-zero and prints no result line):
      per source, in parallel;
   3. kernels: K1 (all five modes), K3 and K4 (both zero_guess modes, scale
      and alpha) against their plain PyTorch versions on the card, at 126^3
-     and at the coarse shapes 63^3 and 32^3 with the real RAP taps, in
-     float32 (max relative error <= 1e-5 on the interior) and float64
-     (<= 1e-12), shells exactly 0;
-  4. K2: modes sweep2|3|4 and _vec at 126^3 and sweep3 at 190^3 (the JAX
-     bench's headline shape), float32 and float64, against the plain
-     version (the same tolerances) and bit for bit against K chained K1
-     launches;
+     (the uniform box: K1 through the box march, `csrc/box_march.cu`) and at
+     the coarse shapes 63^3 and 32^3 with the real RAP taps (K1 through
+     `csrc/stencil.cu`), in float32 (max relative error <= 1e-5 on the
+     interior) and float64 (<= 1e-12), shells exactly 0; for the box, also
+     whether the kernel equals its plain version bit for bit (logged);
+  4. K2 (the box march at K = 2..4): modes sweep2|3|4 and _vec at 126^3 and
+     sweep3 at 190^3 (the JAX bench's headline shape), float32 and float64,
+     against the plain version (the same tolerances) and bit for bit against
+     K chained K1 launches;
   5. main path, V(1,1): `struct_solve` of the 27-point Laplacian at 126^3
      (2,000,376 dofs), L1-Jacobi, b = default_rng(0).random(n), float32,
      tol 1e-5 — must take 11-13 cycles to rel_res <= 1e-4 — with every
@@ -23,10 +25,13 @@ Phases (any failure exits non-zero and prints no result line):
      same solve in float64 to tol 1e-8 against the plain composition (a
      loop of `mult_vcycle`, no custom kernel): the same cycle count and x
      within 1e-10 relative;
-  6. the V(3,3) path (K1, K2, K3, K4): the same problem and counters,
-     float32 to tol 1e-4 and float64 to 1e-8, each against the plain
-     composition (the same cycle count; float64 x within 1e-10), and the
-     per-cycle time of `struct_timed_cycles`;
+  6. the V(3,3) path (K1, K3, K4; K2 where the port routes runs of box
+     sweeps through it, `struct_cycle._k2_pays`): the same problem and
+     counters, float32 to tol 1e-4 and float64 to 1e-8, each against the
+     plain composition (the same cycle count; float64 x within 1e-10); per
+     dtype the device time per cycle of `struct_timed_cycles` with every run
+     of box sweeps through K2 and as K1 launches (bit-equal iterates) and
+     the routing the port keeps; the host clock per cycle in float32;
   7. K5: spmv, residual and sweep on the 99-diagonal elasticity operators
      of 157,035 dofs (elasticity_beam(144, 18, 18)) and 361,875 dofs
      (elasticity_beam(192, 24, 24)), float32 and float64, against the plain
@@ -48,8 +53,11 @@ Phases (any failure exits non-zero and prints no result line):
      zero-guess launches at the path's 63^3 and 32^3 levels, with those
      levels' RAP taps and smoother scale (`make_coarse_specs`), beside
      their plain versions and byte bounds (b, s and rc once each,
-     `ops/transfer.py::k3_bytes`); K2 in the V(3,3) path's sweep2_vec at
-     126^3 and sweep3 at 190^3.
+     `ops/transfer.py::k3_bytes`); K1's tap-list route in the sweeps of the
+     V(3,3) path's 63^3 and 32^3 levels (their RAP taps and scale) beside
+     their byte bounds; K2 in sweep2_vec and sweep3_vec at 126^3 and
+     sweep2_vec and sweep3 at 190^3 (the JAX bench's headline), each beside
+     the chain of K1 launches that does the same sweeps.
 The last two lines are the `kernels` JSON object (K1-K5) and
 {"ok": true, "device": {...}}.
 """
@@ -188,6 +196,9 @@ def kernel_phase(hier64, device):
                     if not nok:
                         fails.append(f"K1 norm {gs} {dn}")
                 fails.append(compare(f"K1 {mode} {kind} {gs}", k, p, gs, dn, errs))
+                if kind == "box":
+                    log(f"  K1 {mode} box {gs} {dn}: equal to the plain version bit for bit: "
+                        f"{bool(torch.equal(k, p))}")
             cs = coarse_shape_of(gs)
             for zg, a in ((False, 0.0), (True, 0.0), (True, alpha)):
                 sa = None if a else s
@@ -413,6 +424,23 @@ def timing_phase(hier32, device, counts, iters):
             f", {len(coff)} RAP taps): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.3f} MB: b, "
             f"{'s, ' if sa is not None else ''}rc once each)")
+        # K1's tap-list route: the level's smoother sweep, as the V(3,3) path
+        # chains it
+        mode = "sweep_vec" if sa is not None else "sweep"
+        usets = [rand_pad(rng, cgs, torch.float32, device) for _ in range(4)]
+        nbytes = (4 if sa is not None else 3) * usets[0].numel() * 4  # u, b (s) in; out
+        r = dict(
+            ms=cuda_time(lambda i: stencil_kernel_padded(
+                usets[i % 4], bsets[i % 4], cw, cgs, coff, alpha=cspec.alpha, scale_pad=sa,
+                mode=mode), 50),
+            plain_ms=cuda_time(lambda i: stencil_plain(
+                usets[i % 4], bsets[i % 4], taps_of(cw, coff), cgs, cspec.alpha, sa, mode), 10),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
+        )
+        results[f"K1 taps level {lvl}"] = r
+        log(f"K1 tap-list route level {lvl} at {cgs} float32 ({mode}, {len(coff)} RAP taps): "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"(bytes, {nbytes / 1e6:.3f} MB)")
     return results
 
 
@@ -477,17 +505,18 @@ def device_per_cycle(run, k0, k1):
 
 
 @contextlib.contextmanager
-def k1_chain_routing():
-    """The parent slice's routing of the structured cycle: every smoothing
-    sweep one K1 launch, no K2 (the same arithmetic, more launches)."""
+def sweep_routing(fuse):
+    """Runs of box sweeps in the structured cycle through K2 (fuse True) or
+    as single K1 launches (False), whatever `struct_cycle._k2_pays` would
+    choose; the same arithmetic either way."""
     from amg_tpu_torch.solve import struct_cycle
 
-    make = struct_cycle.make_struct_spec
-    struct_cycle.make_struct_spec = lambda hier, lvl=0: make(hier, lvl)._replace(box=False)
+    gate = struct_cycle._k2_pays
+    struct_cycle._k2_pays = lambda u_pad: fuse
     try:
         yield
     finally:
-        struct_cycle.make_struct_spec = make
+        struct_cycle._k2_pays = gate
 
 
 def host_slope_ms(run, k0, k1, reps=3):
@@ -500,97 +529,115 @@ def host_slope_ms(run, k0, k1, reps=3):
 
 
 def v33_phase(hier32, hier64, b, device):
-    """The V(3,3) structured solve, whose level-0 sweeps run through K2."""
+    """The V(3,3) structured solve, float32 and float64, each against the
+    plain composition and with the kernels' counters reset just before and
+    read just after; then, per dtype, the device time per cycle with every
+    run of box sweeps through K2 and as K1 launches (the same iterates), and
+    the routing the port keeps (`struct_cycle._k2_pays`)."""
     import torch
 
     from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve import struct_cycle
     from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
     from amg_tpu_torch.solve.struct_cycle import struct_solve, struct_timed_cycles
 
     cfg = CycleConfig(cycle=CycleType.MULT, smoother=SmootherType.L1_JACOBI,
                       num_pre_sweeps=3, num_post_sweeps=3)
-    b32 = torch.from_numpy(b).to(device=device, dtype=torch.float32)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = struct_solve(hier32, cfg, b32, tol=1e-4, max_cycles=40, device=device)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
-    counts = read_counts()
-    _, it_p, _ = plain_solve(hier32, cfg, b32, 1e-4, 40)
-    rel = float(res.rel_resnorm)
-    log(f"V(3,3) float32 solve {N_SIDE}^3: cycles {res.iters} (plain composition {it_p}), "
-        f"rel_res {rel:.4e}, {solve_s:.3f} s; launches {counts}")
-    log("  history", [float(f"{h:.6e}") for h in res.history_list()])
-    fails = []
-    if res.iters != it_p or rel > 1e-4 or not bool(torch.isfinite(res.x).all()):
-        fails.append("V(3,3) float32 solve against the plain composition")
-    # per cycle: the norm sweep (K1) + sweep2_vec (K2) of the pre-smoother,
-    # K3, K4 and one sweep2_vec (K2) of the post-smoother; the pipelined loop
-    # runs one pre-smoother more than it has cycles
-    if counts["K2"] != 2 * res.iters + 1 or counts["K1"] < res.iters + 1:
-        fails.append(f"V(3,3) launches {counts}: K2 != 2 per cycle + 1")
-    b64 = torch.from_numpy(b).to(device)
-    res64 = struct_solve(hier64, cfg, b64, tol=1e-8, max_cycles=40, device=device)
-    x_ref, it_ref, _ = plain_solve(hier64, cfg, b64, 1e-8, 40)
-    dx = float(torch.linalg.norm(res64.x - x_ref) / torch.linalg.norm(x_ref))
-    log(f"V(3,3) float64 solve: cycles {res64.iters} (plain composition {it_ref}), rel_res "
-        f"{float(res64.rel_resnorm):.4e}, |x - x_plain|/|x_plain| {dx:.3e}")
-    if res64.iters != it_ref or dx > 1e-10 or float(res64.rel_resnorm) > 1e-8:
-        fails.append("V(3,3) float64 solve against the plain composition")
-
-    def cycles(k):
-        return struct_timed_cycles(hier32, cfg, b32, k, device=device)
-
-    def run(k):
+    fails, out = [], {}
+    for hier, tol in ((hier32, 1e-4), (hier64, 1e-8)):
+        spec = struct_cycle.make_struct_spec(hier)
+        dn = str(spec.scale_pad.dtype).split(".")[-1]
+        kept = "K2" if struct_cycle._k2_pays(spec.scale_pad) else "K1 chain"
+        bt = torch.from_numpy(b).to(device=device, dtype=spec.scale_pad.dtype)
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        cycles(k)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = struct_solve(hier, cfg, bt, tol=tol, max_cycles=40, device=device)
         torch.cuda.synchronize()
-        return time.perf_counter() - t
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        x_ref, it_p, _ = plain_solve(hier, cfg, bt, tol, 40)
+        rel = float(res.rel_resnorm)
+        dx = float(torch.linalg.norm(res.x.double() - x_ref.double())
+                   / torch.linalg.norm(x_ref.double()))
+        log(f"V(3,3) {dn} solve {N_SIDE}^3: cycles {res.iters} (plain composition {it_p}), "
+            f"rel_res {rel:.4e}, |x - x_plain|/|x_plain| {dx:.3e}, {solve_s:.3f} s; routing "
+            f"of the box sweeps: {kept}; launches {counts}")
+        log("  history", [float(f"{h:.6e}") for h in res.history_list()])
+        if (res.iters != it_p or rel > tol or not bool(torch.isfinite(res.x).all())
+                or (dn == "float64" and dx > 1e-10)):
+            fails.append(f"V(3,3) {dn} solve against the plain composition")
+        # per cycle: the norm sweep (K1) and two more pre-sweeps, K3, K4 and two
+        # post-sweeps; the pipelined loop runs one pre-smoother more than it
+        # has cycles. Two sweeps are one K2 launch or two K1 launches.
+        k2_want = 2 * res.iters + 1 if kept == "K2" else 0
+        if counts["K2"] != k2_want or counts["K1"] < res.iters + 1:
+            fails.append(f"V(3,3) {dn} launches {counts}: K2 != {k2_want}")
 
-    # K2's routing against the parent slice's (every sweep a K1 launch), in
-    # one run: the host clock in turns (K2, chain, chain, K2), then the
-    # device time per cycle by kernel, and the iterates, which K2's
-    # bit-exactness against the K1 chain makes equal
-    routes = {"K2": contextlib.nullcontext, "K1 chain": k1_chain_routing}
-    host = {r: [] for r in routes}
-    for r in ("K2", "K1 chain", "K1 chain", "K2"):
-        with routes[r]():
-            ms, s0, s1 = host_slope_ms(run, 5, 25)
-        host[r].append(ms)
-        log(f"V(3,3) per-cycle time, {r} routing (struct_timed_cycles slope 5->25, float32): "
-            f"{ms:.4f} ms; samples {[round(t * 1e3, 3) for t in s0]} / "
-            f"{[round(t * 1e3, 3) for t in s1]} ms")
-    out = {"cycles": res.iters, "plain_cycles": it_p, "rel_res": rel, "counts": counts,
-           "cycles64": res64.iters, "dx64": dx}
-    xs = {}
-    for r, ctx in routes.items():
-        with ctx():
-            k2_before = read_counts()["K2"]
-            xs[r] = cycles(5)
-            k2_run = read_counts()["K2"] - k2_before
-            busy, events, rows = device_per_cycle(cycles, 5, 10)
-        log(f"V(3,3) {r} routing: device busy per cycle (torch.profiler, slope 5->10 cycles) "
-            f"{busy:.4f} ms in {events:.1f} events; host {min(host[r]):.4f} ms/cycle; "
-            f"K2 launches in 5 cycles {k2_run}")
-        for ms, n, name in rows[:8]:
-            log(f"  {ms:.4f} ms/cycle  {n:5.1f} launches/cycle  {name[:100]}")
-        key = "" if r == "K2" else "chain_"
-        out.update({f"{key}cycle_ms": min(host[r]), f"{key}device_ms": busy or None,
-                    f"{key}device_events": events or None})
-        if (k2_run == 0) == (r == "K2"):
-            fails.append(f"V(3,3) {r} routing launched K2 {k2_run} times in 5 cycles")
-    same = bool(torch.equal(xs["K2"], xs["K1 chain"]))
-    log(f"V(3,3) 5 cycles: K2 routing equal to the K1-chain routing bit for bit: {same}")
-    if not same:
-        fails.append("V(3,3) K2 routing differs from the K1-chain routing")
+        def cycles(k):
+            return struct_timed_cycles(hier, cfg, bt, k, device=device)
+
+        xs, dev, kern, boxes = {}, {}, {}, {}
+        for r, fuse in (("K2", True), ("K1 chain", False)):
+            with sweep_routing(fuse):
+                k2_before = read_counts()["K2"]
+                xs[r] = cycles(5)
+                k2_run = read_counts()["K2"] - k2_before
+                busy, events, rows = device_per_cycle(cycles, 5, 10)
+            dev[r] = busy
+            # kernels only: the copies' rows carry the host's waits at the ends
+            kern[r] = sum(ms for ms, _, name in rows if not name.startswith("Mem"))
+            boxes[r] = sum(ms for ms, _, name in rows if "box_march" in name)
+            log(f"V(3,3) {dn} {r} routing: device busy per cycle (torch.profiler, slope 5->10 "
+                f"cycles) {busy:.4f} ms in {events:.1f} events, kernels {kern[r]:.4f} ms, of "
+                f"which the box march {boxes[r]:.4f} ms; K2 launches in 5 cycles {k2_run}")
+            for ms, n, name in rows[:6]:
+                log(f"  {ms:.4f} ms/cycle  {n:5.1f} launches/cycle  {name[:100]}")
+            if (k2_run == 0) == fuse:
+                fails.append(f"V(3,3) {dn} {r} routing launched K2 {k2_run} times in 5 cycles")
+        same = bool(torch.equal(xs["K2"], xs["K1 chain"]))
+        faster = min(kern, key=kern.get)
+        log(f"V(3,3) {dn} 5 cycles: K2 routing equal to the K1-chain routing bit for bit: "
+            f"{same}; the port keeps the {kept} routing; the faster in kernel time here: {faster}")
+        if not same:
+            fails.append(f"V(3,3) {dn} K2 routing differs from the K1-chain routing")
+        out[dn] = {"cycles": res.iters, "plain_cycles": it_p, "rel_res": rel, "dx": dx,
+                   "counts": counts, "kept": kept, "device_ms_k2": dev["K2"] or None,
+                   "device_ms_chain": dev["K1 chain"] or None, "kernel_ms_k2": kern["K2"],
+                   "kernel_ms_chain": kern["K1 chain"], "box_ms_k2": boxes["K2"],
+                   "box_ms_chain": boxes["K1 chain"]}
+
+        def run(k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cycles(k)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        # the host clock, which the cycle waits on: ten pairs of turns, the
+        # order alternating within the pairs
+        host = {"K2": [], "K1 chain": []}
+        for pair in range(10):
+            order = ("K2", "K1 chain") if pair % 2 == 0 else ("K1 chain", "K2")
+            for r in order:
+                with sweep_routing(r == "K2"):
+                    host[r].append(host_slope_ms(run, 5, 25)[0])
+        wins = sum(a < c for a, c in zip(host["K2"], host["K1 chain"]))
+        med = {r: float(np.median(v)) for r, v in host.items()}
+        q = {r: np.percentile(v, [25, 75]) for r, v in host.items()}
+        log(f"V(3,3) {dn} per-cycle time on the host clock (struct_timed_cycles slope 5->25, "
+            f"10 pairs): K2 routing median {med['K2']:.4f} ms (quartiles {q['K2'][0]:.4f}-"
+            f"{q['K2'][1]:.4f}), K1 chain median {med['K1 chain']:.4f} ms (quartiles "
+            f"{q['K1 chain'][0]:.4f}-{q['K1 chain'][1]:.4f}); K2 faster in {wins} of 10 pairs")
+        out[dn].update({"host_ms_k2": med["K2"], "host_ms_chain": med["K1 chain"],
+                        "host_k2_wins": wins})
     return out, fails
 
 
 def k2_timing(device):
-    """K2 in the V(3,3) path's mode (sweep2_vec at 126^3) and at the JAX
-    bench's headline (sweep3 at 190^3), float32."""
+    """K2 in the V(3,3) path's modes at 126^3 and at the JAX bench's
+    headline shape 190^3, float32, each beside the chain of K1 launches that
+    does the same sweeps."""
     import torch
 
     from amg_tpu_torch.ops.stencil import stencil_kernel_padded, sweepk_plain, taps_of
@@ -599,7 +646,8 @@ def k2_timing(device):
     taps = taps_of(w, off)
     rng = np.random.default_rng(SEED + 3)
     out = {}
-    for gs, mode in (((N_SIDE,) * 3, "sweep2_vec"), ((190,) * 3, "sweep3")):
+    for gs, mode in (((N_SIDE,) * 3, "sweep2_vec"), ((N_SIDE,) * 3, "sweep3_vec"),
+                     ((190,) * 3, "sweep2_vec"), ((190,) * 3, "sweep3")):
         k, vec = int(mode[5]), mode.endswith("_vec")
         sets = [tuple(rand_pad(rng, gs, torch.float32, device) for _ in range(3)) for _ in range(3)]
         alpha = 1.0 / 52.0
@@ -619,6 +667,17 @@ def k2_timing(device):
         flops = k * (2 * 27 + 3) * pts
         r = dict(ms=cuda_time(kern, 30), plain_ms=cuda_time(plain, 5), library_ms=None,
                  bytes=nbytes, flops=flops)
+        def chain(i):
+            u, b, s = sets[i % 3]
+            for _ in range(k):
+                u = stencil_kernel_padded(u, b, w, gs, off, alpha=alpha,
+                                          scale_pad=s if vec else None,
+                                          mode="sweep_vec" if vec else "sweep")
+            return u
+
+        r["chain_ms"] = cuda_time(chain, 30)
+        log(f"  {k} chained K1 box {'sweep_vec' if vec else 'sweep'} launches at {gs} float32: "
+            f"{r['chain_ms']:.4f} ms")
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -626,7 +685,7 @@ def k2_timing(device):
             f"library null (no one PyTorch call runs {k} Jacobi sweeps), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
-        out[mode] = r
+        out[f"{mode} {gs[0]}"] = r
     return out
 
 
@@ -972,19 +1031,22 @@ def main() -> int:
     cycle = cycle_phase(hier32, cfg, b32, device)
     timings = timing_phase(hier32, device, counts, res.iters)
     t2 = k2_timing(device)
-    timings["K2"] = t2["sweep2_vec"]
+    timings["K2"] = t2[f"sweep2_vec {N_SIDE}"]
     timings["K5"] = t5[("spmv", "157k", "float64")]
-    launches = dict(counts, K2=v33["counts"]["K2"], K5=el["counts"]["K5"])
+    # K2's launches: those of the V(3,3) solves; 0 where the port routes
+    # their box sweeps as K1 launches (on the card, where that is faster)
+    launches = dict(counts, K2=max(r["counts"]["K2"] for r in v33.values()),
+                    K5=el["counts"]["K5"])
 
     sources = {
-        "K1": ("amg_tpu_torch/csrc/stencil.cu", "amg_tpu/ops/pallas_stencil.py:269"),
-        "K2": ("amg_tpu_torch/csrc/sweepk.cu", "amg_tpu/ops/pallas_stencil.py:82"),
+        "K1": ("amg_tpu_torch/csrc/box_march.cu", "amg_tpu/ops/pallas_stencil.py:269"),
+        "K2": ("amg_tpu_torch/csrc/box_march.cu", "amg_tpu/ops/pallas_stencil.py:82"),
         "K3": ("amg_tpu_torch/csrc/transfer.cu", "amg_tpu/ops/pallas_transfer.py:181"),
         "K4": ("amg_tpu_torch/csrc/transfer.cu", "amg_tpu/ops/pallas_transfer.py:404"),
         "K5": ("amg_tpu_torch/csrc/var_stencil.cu", "amg_tpu/ops/pallas_var_stencil.py:98"),
     }
-    # what each entry's time is of: K1 sweep_vec_norm, K3 and K4 at 126^3
-    # float32 (the V(1,1) path); K2 sweep2_vec at 126^3 float32 (the V(3,3)
+    # what each entry's time is of: K1 sweep_vec_norm (the box march), K3 and
+    # K4 at 126^3 float32 (the V(1,1) path); K2 sweep2_vec at 126^3 float32 (the V(3,3)
     # path); K5 spmv at 157k float64 (the PCG matvec of the elasticity path)
     kernels = []
     for name, (src, rep) in sources.items():

@@ -1,11 +1,15 @@
 """The CUDA kernels K1 to K5 of the PyTorch port against their plain PyTorch
 versions, on the card, at ragged shapes that the main paths do not give them
 (odd sides, X not a multiple of any block width or tile), with each launch
-counted. K2 is also held bit for bit against K chained K1 launches.
+counted. K2 is also held bit for bit against K chained K1 launches. K1 on
+the uniform 27-point box and K2 run through the box march
+(`csrc/box_march.cu`), K1 on other taps through `csrc/stencil.cu`; the box
+march is also run at the edges of its launch plan (chunks of one plane,
+chunks that do not divide the planes, one chunk longer than the array).
 
 Marked `cuda`; without a card every test skips. On a machine with one:
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python -m pytest tests/test_torch_cuda.py -q -m cuda   # -k k1, -k k2, -k box
 
 Tolerances: float64 to 1e-12 and float32 to 1e-5, relative to the largest
 interior value (the kernels fuse multiply-adds and sum in their own order);
@@ -38,6 +42,16 @@ def _taps(seed):
     w = -np.random.default_rng(seed).random(27)
     w[13] = 30.0
     return tuple(float(x) for x in w), offs
+
+
+# the box march's plan edges: a side under one 32 x 8 tile and one-plane
+# chunks (the SHAPES), and 62 padded planes in 9 chunks of 7
+BOX_SHAPES = SHAPES + [(60, 96, 128)]
+
+
+def _box():
+    offs = tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    return tuple(26.0 if o == (0, 0, 0) else -1.0 for o in offs), offs
 
 
 def _pad(rng, gs, dtype, device):
@@ -74,6 +88,76 @@ def test_k1_matches_plain(device, gs, dtype):
             assert abs(float(gn.double().sum()) - float(wn.double().sum())) <= (
                 TOL[dtype] * float(wn.double().sum()))
         _check(got, want, gs, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs", BOX_SHAPES, ids=str)
+def test_k1_box_matches_plain(device, gs, dtype):
+    """K1 on the uniform box (the box march at K = 1), all five modes; the
+    norm's partials, one per block of the plan, sum to the plain r^2."""
+    rng = np.random.default_rng(5)
+    w, offs = _box()
+    taps = ts.taps_of(w, offs)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.02 * _pad(rng, gs, dtype, device)
+    for mode in ts.MODES:
+        before = ts.stencil_kernel_padded.launches
+        got = ts.stencil_kernel_padded(u, b, w, gs, offs, alpha=0.03, scale_pad=s, mode=mode)
+        assert ts.stencil_kernel_padded.launches == before + 1
+        want = ts.stencil_plain(u, b, taps, gs, 0.03, s if "vec" in mode else None, mode)
+        if mode == "sweep_vec_norm":
+            (got, gn), (want, wn) = got, want
+            assert gn.numel() == np.prod(ts.box_plan(gs)[1])
+            assert abs(float(gn.double().sum()) - float(wn.double().sum())) <= (
+                TOL[dtype] * float(wn.double().sum()))
+        _check(got, want, gs, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("zchunk", [1, 3, 5, 19, 24])
+def test_box_march_at_plan_edges(device, zchunk, dtype):
+    """The box march under explicit plans on 17 x 18 x 16 (19 padded planes):
+    K1 against its plain version and K2 bit for bit against the K1 chain
+    under the same plan."""
+    gs = (17, 18, 16)
+    Zr, Yr, Xr = ts.padded_shape(gs)
+    plan = (zchunk, (-(-Xr // ts.BOX_TILE[1]), -(-Yr // ts.BOX_TILE[0]), -(-Zr // zchunk)))
+    rng = np.random.default_rng(6)
+    w, offs = _box()
+    box = ts.uniform_box_weights(ts.taps_of(w, offs))
+    taps = ts.taps_of(w, offs)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.03 * _pad(rng, gs, dtype, device)
+    got, parts = ts._launch_box(u, b, s, box, gs, 0.0, "sweep_vec_norm", 1, plan)
+    want, wn = ts.stencil_plain(u, b, taps, gs, 0.0, s, "sweep_vec_norm")
+    assert parts.numel() == np.prod(plan[1])
+    assert abs(float(parts.double().sum()) - float(wn)) <= TOL[dtype] * float(wn)
+    _check(got, want, gs, dtype)
+    for k in (2, 3, 4):
+        got = ts._launch_box(u, b, s, box, gs, 0.0, "sweep_vec", k, plan)
+        chain = u
+        for _ in range(k):
+            chain = ts._launch_box(chain, b, s, box, gs, 0.0, "sweep_vec", 1, plan)
+        assert torch.equal(got, chain), k
+        _check(got, ts.sweepk_plain(u, b, taps, gs, k, 0.0, s), gs, dtype)
+
+
+def test_box_march_refuses_a_misaligned_view(device):
+    """The box march copies u, b and s in 16-byte chunks: a view at an offset
+    that breaks the alignment raises, and nothing is launched."""
+    gs = (8, 8, 8)
+    w, offs = _box()
+    shape = ts.padded_shape(gs)
+    flat = torch.zeros(int(np.prod(shape)) + 1, device=device)
+    bad = flat[1:].view(shape)
+    good = torch.zeros(shape, device=device)
+    before = (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.k2_launches)
+    for u, b, s in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ts.stencil_kernel_padded(u, b, w, gs, offs, scale_pad=s, mode="sweep_vec")
+        with pytest.raises(ValueError, match="16-byte"):
+            ts.stencil_kernel_padded(u, b, w, gs, offs, scale_pad=s, mode="sweep2_vec")
+    assert (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.k2_launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
@@ -147,11 +231,10 @@ def test_k3_refuses_a_misaligned_view(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
-@pytest.mark.parametrize("gs", SHAPES, ids=str)
+@pytest.mark.parametrize("gs", BOX_SHAPES, ids=str)
 def test_k2_matches_plain_and_the_k1_chain(device, gs, dtype):
     rng = np.random.default_rng(2)
-    offs = tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-    w = tuple(26.0 if o == (0, 0, 0) else -1.0 for o in offs)
+    w, offs = _box()
     taps = ts.taps_of(w, offs)
     u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
     s = 0.03 * _pad(rng, gs, dtype, device)

@@ -129,3 +129,110 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     )
     assert torch.equal(out, want)
     assert ts.stencil_kernel_padded.launches == before
+
+
+# float32: the separable plain version against the Pallas kernel's box path.
+# Both sum the box in the same order, but XLA on the CPU may contract the
+# combine w_off*t + (w_c - w_off)*u into FMAs, so the two differ by an ulp
+# of the largest values (measured: 1.9e-6 on values up to ~21, one ulp);
+# held to 4 ulps of the largest value.
+@pytest.mark.parametrize("mode", ts.MODES)
+def test_box_plain_matches_pallas_in_float32(mode):
+    st = laplacian_3d_27pt(8).stencil
+    gs, weights, offsets, u, b, s = _inputs(st, seed=7)
+    u, b, s = (x.astype(np.float32) for x in (u, b, s))
+    with pltpu.force_tpu_interpret_mode():
+        want = ps.stencil_kernel_padded(
+            _jax_pad(u, gs), _jax_pad(b, gs), weights, gs, offsets,
+            alpha=0.01, scale_pad=_jax_pad(s, gs), mode=mode, slab=8,
+        )
+    got = ts.stencil_kernel_padded(
+        _port_pad(u, gs), _port_pad(b, gs), weights, gs, offsets,
+        alpha=0.01, scale_pad=_port_pad(s, gs), mode=mode,
+    )
+    if mode == "sweep_vec_norm":
+        (want, _), (got, _) = want, got
+    assert got.dtype == torch.float32
+    wi = np.asarray(ps.from_padded(want, gs))
+    gi = ts.from_padded(got, gs).numpy()
+    assert np.abs(gi - wi).max() <= 4 * np.finfo(np.float32).eps * np.abs(wi).max()
+
+
+def test_box_plain_sums_in_the_reference_order():
+    """On the uniform box, apply_plain rounds exactly as a numpy transcription
+    of the reference's box_apply (z sum (m + c) + p, then y and x by rolls as
+    (c + m) + p, then w_off*t + (w_c - w_off)*u), in float32."""
+    gs = (6, 7, 9)
+    offs = tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    w_off, w_c = -0.37, 5.3
+    taps = ts.taps_of(tuple(w_c if o == (0, 0, 0) else w_off for o in offs), offs)
+    u = ts.to_padded(torch.from_numpy(
+        np.random.default_rng(3).standard_normal(int(np.prod(gs))).astype(np.float32)), gs)
+    p = u.numpy()
+    Z, Y, X = gs
+    t = (p[0:Z] + p[1:Z + 1]) + p[2:Z + 2]
+    t = (t + np.roll(t, 1, axis=1)) + np.roll(t, -1, axis=1)
+    t = (t + np.roll(t, 1, axis=2)) + np.roll(t, -1, axis=2)
+    want = np.float32(w_off) * t + np.float32(w_c - w_off) * p[1:Z + 1]
+    got = ts.apply_plain(u, taps, gs)
+    assert np.array_equal(got.numpy(), want[:, 1:Y + 1, 1:X + 1])
+
+
+@pytest.mark.parametrize("name,gen", CASES[1:], ids=[c[0] for c in CASES[1:]])
+def test_non_box_taps_keep_list_order(name, gen):
+    """Every tap list but the uniform box is summed in list order, and the
+    wrapper on the CPU is the plain version exactly."""
+    st = gen()
+    gs, weights, offsets, u, b, s = _inputs(st, seed=4)
+    taps = ts.taps_of(weights, offsets)
+    assert ts.uniform_box_weights(taps) is None
+    up = _port_pad(u, gs)
+    Z, Y, X = gs
+    want = torch.zeros(gs, dtype=up.dtype)
+    for dz, dy, dx, w in taps:
+        want = want + w * up[1 + dz:1 + dz + Z, 1 + dy:1 + dy + Y, 1 + dx:1 + dx + X]
+    assert torch.equal(ts.apply_plain(up, taps, gs), want)
+    bp, sp_ = _port_pad(b, gs), _port_pad(s, gs)
+    for mode in ts.MODES:
+        got = ts.stencil_kernel_padded(up, bp, weights, gs, offsets, alpha=0.02,
+                                       scale_pad=sp_, mode=mode)
+        plain = ts.stencil_plain(up, bp, taps, gs, 0.02, sp_ if "vec" in mode else None, mode)
+        if mode == "sweep_vec_norm":
+            assert torch.equal(got[1], plain[1])
+            got, plain = got[0], plain[0]
+        assert torch.equal(got, plain)
+
+
+def _box_plan_writes(gs, nsweep):
+    """How often the box march's plan has a block write each padded point."""
+    zchunk, (gx, gy, gz) = ts.box_plan(gs, nsweep)
+    Zr, Yr, Xr = ts.padded_shape(gs)
+    ty, tx = ts.BOX_TILE
+    writes = np.zeros((Zr, Yr, Xr), dtype=np.int32)
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                writes[bz * zchunk:min(bz * zchunk + zchunk, Zr),
+                       by * ty:by * ty + ty, bx * tx:bx * tx + tx] += 1
+    return zchunk, (gx, gy, gz), writes
+
+
+# a side under one tile and one-plane chunks; chunks that do not divide the
+# planes (62 padded planes in chunks of 4 at K = 1, of 8 at K >= 2); the main
+# path's 126^3
+@pytest.mark.parametrize("gs", [(3, 4, 5), (5, 6, 7), (60, 96, 128), (126, 126, 126)], ids=str)
+def test_box_plan_covers_every_point_once(gs):
+    for nsweep in (1, 2, 3, 4):
+        zchunk, grid, writes = _box_plan_writes(gs, nsweep)
+        assert (writes == 1).all()
+        assert 1 <= zchunk <= ts.BOX_MAX_ZCHUNK
+        assert zchunk == ts.BOX_MAX_ZCHUNK or np.prod(grid) <= ts.box_max_blocks(nsweep)
+        if gs == (60, 96, 128):
+            assert zchunk > 1 and grid[2] * zchunk != ts.padded_shape(gs)[0]
+
+
+def test_box_plan_pins_the_main_path_shapes():
+    assert ts.box_plan((5, 6, 7)) == (1, (1, 1, 7))
+    assert ts.box_plan((126, 126, 126)) == (8, (4, 16, 16))  # K1: 1024 blocks
+    assert ts.box_plan((126, 126, 126), 2) == (16, (4, 16, 8))  # 512 blocks
+    assert ts.box_plan((190, 190, 190), 3) == (32, (6, 24, 6))  # 864 blocks

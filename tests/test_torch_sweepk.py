@@ -4,8 +4,9 @@ amg_tpu_torch/solve/struct_cycle.py, against the JAX package.
 
 - The plain K2 against the JAX package's `_sweepk_kernel` (modes
   sweep2|3|4[_vec]) in interpret mode at 16^3: the same float64 inputs, atol
-  1e-12 on the interior (both chain K sweeps of 27 products of O(1) values,
-  summed in different orders), shell exactly 0.
+  1e-12 on the interior (both chain K sweeps of the separable box sum in
+  the same order; XLA may contract the combine into FMAs), shell exactly 0;
+  and in float32 at 12^3, to 4 ulps of the largest value.
 - `struct_solve` V(3,2) at 12^3, where the JAX package runs its fused
   three-sweep kernel: the same cycle count, x to rtol 1e-12.
 - F4: on the default hierarchy at 64^3, level 1 (32^3) is a constant RAP
@@ -14,6 +15,8 @@ amg_tpu_torch/solve/struct_cycle.py, against the JAX package.
   box; the port chains single sweeps there and equals the generic
   mult_vcycle solve of both packages to atol 1e-12.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -83,6 +86,38 @@ def test_k2_plain_matches_pallas(mode):
     assert torch.count_nonzero(shell) == 0
 
 
+# float32: the K sweeps of the plain version against the Pallas kernel at
+# 12^3. Both sum the box in the reference's separable order; XLA on the CPU may
+# contract the combine into FMAs (one ulp per sweep at most), so the iterates
+# are held to 4 ulps of their largest value (measured: 0.7 ulp for sweep2_vec,
+# 1.7 for sweep4).
+@pytest.mark.parametrize("mode", ["sweep2_vec", "sweep4"])
+def test_k2_plain_matches_pallas_in_float32(mode):
+    gs, weights, offsets, u, b, s = _box_inputs(12, seed=3)
+    u, b, s = (x.astype(np.float32) for x in (u, b, s))
+    vec = mode.endswith("_vec")
+
+    def jpad(x):
+        return ps.to_padded(jnp.asarray(x), gs, 4)
+
+    def tpad(x):
+        return ts.to_padded(torch.from_numpy(x), gs)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = ps.stencil_kernel_padded(
+            jpad(u), jpad(b), weights, gs, offsets, alpha=0.9 / 26.0,
+            scale_pad=jpad(s) if vec else None, mode=mode, slab=4,
+        )
+    got = ts.stencil_kernel_padded(
+        tpad(u), tpad(b), weights, gs, offsets, alpha=0.9 / 26.0,
+        scale_pad=tpad(s) if vec else None, mode=mode,
+    )
+    assert got.dtype == torch.float32
+    wi = np.asarray(ps.from_padded(want, gs))
+    gi = ts.from_padded(got, gs).numpy()
+    assert np.abs(gi - wi).max() <= 4 * np.finfo(np.float32).eps * np.abs(wi).max()
+
+
 def test_k2_needs_the_uniform_box_and_counts_no_cpu_launch():
     gs, weights, offsets, u, b, s = _box_inputs(6, seed=0)
     up, bp = ts.to_padded(torch.from_numpy(u), gs), ts.to_padded(torch.from_numpy(b), gs)
@@ -122,6 +157,30 @@ def test_fine_sweeps_chain_greedily(post, monkeypatch):
     modes.clear()
     tsc._fine_sweeps(spec._replace(box=False), torch.zeros_like(b_pad), b_pad, post)
     assert modes == ["sweep_vec"] * post
+
+
+def test_fine_sweeps_chain_k1_launches_on_the_card(monkeypatch):
+    """On a CUDA state the box sweeps run as single K1 launches (chained K1
+    launches are faster than K2 on the H100); on the CPU K2 modes, as the
+    reference routes them."""
+    n = 8
+    _, jh = jax_build(jax_27pt(n).stencil, smoother=JaxSmoother.L1_JACOBI)
+    spec = tsc.make_struct_spec(port_hierarchy(jh))
+    modes = []
+
+    def spy(u_pad, *a, **kw):
+        modes.append(kw["mode"])
+        return u_pad
+
+    monkeypatch.setattr(tsc, "stencil_kernel_padded", spy)
+    on_card = SimpleNamespace(device=SimpleNamespace(type="cuda"))
+    assert not tsc._k2_pays(on_card)
+    tsc._fine_sweeps(spec, on_card, None, 3)
+    assert modes == ["sweep_vec"] * 3
+    modes.clear()
+    assert tsc._k2_pays(spec.scale_pad)
+    tsc._fine_sweeps(spec, spec.scale_pad, None, 3)
+    assert modes == ["sweep3_vec"]
 
 
 def test_struct_solve_v32_matches_jax():
