@@ -101,31 +101,6 @@ constexpr size_t march_smem_bytes() {
          Win<K>::kPlane * sizeof(T);
 }
 
-// 16 bytes global -> shared by cp.async (both 16-byte aligned); when !valid
-// nothing is read and the 16 bytes are filled with 0 (src-size 0). kL1 keeps
-// the line in L1 (.ca) for later reads through __ldg; else L2 only (.cg).
-template <bool kL1>
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const unsigned n = valid ? 16u : 0u;
-  if constexpr (kL1) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <typename T>
 __device__ __forceinline__ T block_sum(T v) {
   __shared__ T warp_sums[kNT / 32];
@@ -491,8 +466,6 @@ int launch_typed(int nsweep, int mode, const void* u, const void* b, const void*
   }
 }
 
-bool misaligned(const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 != 0; }
-
 }  // namespace
 
 extern "C" {
@@ -507,8 +480,8 @@ int amg_box_launch(int is_double, const void* u, const void* b, const void* s, v
                    int X, int Zr, int Yr, int Xr, int nsweep, int mode, int gx, int gy,
                    int gz, int zchunk, void* stream) {
   if (zchunk < 1 || gx != (Xr + kTX - 1) / kTX || gy != (Yr + kTY - 1) / kTY ||
-      gz != (Zr + zchunk - 1) / zchunk || Xr % 4 != 0 || misaligned(u) || misaligned(b) ||
-      misaligned(s))
+      gz != (Zr + zchunk - 1) / zchunk || Xr % 4 != 0 || misaligned16(u) || misaligned16(b) ||
+      misaligned16(s))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(gx, gy, gz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

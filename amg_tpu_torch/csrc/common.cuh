@@ -96,6 +96,36 @@ __device__ __forceinline__ T jacobi_update_rn(T u, T b, T s, T acc) {
   return add_rn(u, mul_rn(s, sub_rn(b, acc)));
 }
 
+// 16 bytes global -> shared by cp.async (both 16-byte aligned); when !valid
+// nothing is read and the 16 bytes are filled with 0 (src-size 0). kL1 keeps
+// the line in L1 (.ca) for later reads through __ldg; else L2 only (.cg).
+template <bool kL1 = false>
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const unsigned n = valid ? 16u : 0u;
+  if constexpr (kL1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+inline bool misaligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 != 0;
+}
+
 __device__ __forceinline__ bool interior(int z, int y, int x, int Z, int Y, int X) {
   return z >= 1 && z <= Z && y >= 1 && y <= Y && x >= 1 && x <= X;
 }

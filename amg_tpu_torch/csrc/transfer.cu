@@ -1,4 +1,5 @@
-// K3 and K4: the fused transfer kernels on the padded state.
+// K3: the fused residual-restrict kernel on the padded state (K4, the fused
+// prolong-sweep, is csrc/prolong_march.cu).
 //
 // K3 replaces amg_tpu/ops/pallas_transfer.py::_rr_kernel (entry
 // residual_restrict_padded):
@@ -45,25 +46,6 @@
 // well inside the 1e-5 (float32) and 1e-12 (float64) relative tolerances
 // the kernel is held to.
 //
-// K4 replaces amg_tpu/ops/pallas_transfer.py::_ps_kernel (entry
-// prolong_sweep_padded):
-//     u' = x + P ec ;  out = u' + s (b - A u')   (alpha instead of s when s is null)
-// with x = u, or under zero_guess x = s*b (alpha*b): a coarse level's whole
-// up-visit. P is trilinear: fine interior index f takes coarse f/2 (weight 1)
-// when even, coarse (f-1)/2 and (f+1)/2 (weight 1/2 each) when odd; the
-// coarse padded zero shell supplies the clipped term at an even-sided edge.
-// The graded-end even-axis transfer of the DIA hierarchy never occurs under
-// (s+1)//2 coarsening, and the Python wrapper refuses other coarse shapes.
-//
-// K4's bound on the H100: bytes. It reads x, b, s and 1/8 of ec and writes
-// out, about 4 1/8 state arrays (~10 us at 3.35 TB/s at 126^3). Design: it
-// first builds u' = x + P ec over its block's tile plus a one-cell halo in
-// shared memory (tile 10x10x34 for 8x8x32 fine points; neighbouring blocks
-// recompute the halo), then applies the stencil sweep from that tile, so u'
-// never touches device memory. The iterate's source (x, s*b or alpha*b) and
-// the sweep's scale (s or alpha) are template parameters; the taps ride in a
-// by-value struct with their linear offsets precomputed for the tile; global
-// reads go through L1/L2. No TMA or asynchronous copies yet.
 #include "common.cuh"
 
 using namespace amg;
@@ -106,28 +88,6 @@ struct K3Chunks {
 // K3's iterate: u itself, or the zero-guess pre-sweep s*b or alpha*b
 enum K3Mode { kK3Iterate = 0, kK3ZeroScale = 1, kK3ZeroAlpha = 2 };
 
-// K4: 32x8 threads over fine (x, y), 8 fine z-rows per block
-constexpr int k4BX = 32;
-constexpr int k4BY = 8;
-constexpr int k4TZ = 8;
-constexpr int k4UX = k4BX + 2;
-constexpr int k4UY = k4BY + 2;
-constexpr int k4UZ = k4TZ + 2;
-
-// The iterate at linear index q: x itself, or the zero-guess pre-sweep s*b
-// (kScale) or alpha*b.
-template <typename T, bool kZeroGuess, bool kScale>
-__device__ __forceinline__ T iterate_at(const T* __restrict__ x, const T* __restrict__ b,
-                                        const T* __restrict__ s, T alpha, long long q) {
-  if constexpr (!kZeroGuess) {
-    return __ldg(x + q);
-  } else if constexpr (kScale) {
-    return __ldg(s + q) * __ldg(b + q);
-  } else {
-    return alpha * __ldg(b + q);
-  }
-}
-
 // The stencil as a dense 3x3x3 weight box, w[dz+1][dy+1][dx+1] (absent taps
 // weigh 0), passed by value.
 template <typename T>
@@ -148,24 +108,6 @@ bool make_box27(Box27<T>* box, const double* w, const int* dz, const int* dy, co
   }
   for (int j = 0; j < 27; ++j) box->w[j / 9][(j / 3) % 3][j % 3] = static_cast<T>(acc[j]);
   return true;
-}
-
-// 16 bytes global -> shared by cp.async (both 16-byte aligned); when !valid
-// nothing is read and the 16 bytes are filled with 0 (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const unsigned n = valid ? 16u : 0u;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Block (bx, by, bz): coarse columns cx0 .. cx0+15, cy0 .. cy0+7, coarse
@@ -353,83 +295,6 @@ __global__ void __launch_bounds__(k3NT)
   cp_async_wait<0>();
 }
 
-// Trilinear P ec at fine padded point (pz, py, px) (interior), reading the
-// padded coarse correction ec (plane stride csp, row stride csx).
-template <typename T>
-__device__ __forceinline__ T prolong_at(const T* __restrict__ ec, int pz, int py, int px,
-                                        long long csp, int csx) {
-  int cz[2], cy[2], cx[2];
-  T wz[2], wy[2], wx[2];
-  int nz, ny, nx;
-  auto axis = [](int p, int* c, T* w, int* n) {
-    const int f = p - 1;  // fine interior index
-    c[0] = f / 2 + 1;     // padded coarse index of coarse f/2 (floor)
-    if ((f & 1) == 0) {
-      w[0] = T(1);
-      *n = 1;
-    } else {
-      c[1] = c[0] + 1;
-      w[0] = w[1] = T(0.5);
-      *n = 2;
-    }
-  };
-  axis(pz, cz, wz, &nz);
-  axis(py, cy, wy, &ny);
-  axis(px, cx, wx, &nx);
-  T acc = T(0);
-  for (int a = 0; a < nz; ++a)
-    for (int bb = 0; bb < ny; ++bb)
-      for (int c = 0; c < nx; ++c)
-        acc += (wz[a] * wy[bb] * wx[c]) * __ldg(ec + cz[a] * csp + static_cast<long long>(cy[bb]) * csx + cx[c]);
-  return acc;
-}
-
-// taps: linear offsets into the flat (k4UZ, k4UY, k4UX) shared tile
-template <typename T, bool kZeroGuess, bool kScale>
-__global__ void __launch_bounds__(k4BX* k4BY)
-    k4_kernel(const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ s,
-              const T* __restrict__ ec, T* __restrict__ out, const Taps<T> taps, int Z,
-              int Y, int X, int Zr, int Yr, int Xr, int Ycr, int Xcr, T alpha) {
-  __shared__ T up[k4UZ * k4UY * k4UX];
-  const int x0 = blockIdx.x * k4BX, y0 = blockIdx.y * k4BY, z0 = blockIdx.z * k4TZ;
-  const long long sp = static_cast<long long>(Yr) * Xr;
-  const long long csp = static_cast<long long>(Ycr) * Xcr;
-  const int tid = threadIdx.y * k4BX + threadIdx.x;
-  for (int l = tid; l < k4UZ * k4UY * k4UX; l += k4BX * k4BY) {
-    const int lx = l % k4UX, ly = (l / k4UX) % k4UY, lz = l / (k4UX * k4UY);
-    const int px = x0 - 1 + lx, py = y0 - 1 + ly, pz = z0 - 1 + lz;
-    T val = T(0);
-    if (interior(pz, py, px, Z, Y, X)) {
-      const long long i = pz * sp + static_cast<long long>(py) * Xr + px;
-      val = iterate_at<T, kZeroGuess, kScale>(x, b, s, alpha, i) +
-            prolong_at(ec, pz, py, px, csp, Xcr);
-    }
-    up[l] = val;
-  }
-  __syncthreads();
-  const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
-  if (px >= Xr || py >= Yr) return;
-  const T* tile_base = up;
-  auto tile = [tile_base](long long q) { return tile_base[q]; };
-  for (int tz = 0; tz < k4TZ; ++tz) {
-    const int pz = z0 + tz;
-    if (pz >= Zr) break;
-    const long long i = pz * sp + static_cast<long long>(py) * Xr + px;
-    T val = T(0);
-    if (interior(pz, py, px, Z, Y, X)) {
-      const int c = ((tz + 1) * k4UY + threadIdx.y + 1) * k4UX + threadIdx.x + 1;
-      const T acc = apply_taps(taps, c, tile);
-      const T sc = kScale ? s[i] : alpha;
-      val = up[c] + sc * (b[i] - acc);
-    }
-    out[i] = val;
-  }
-}
-
-dim3 k4_grid(int Zr, int Yr, int Xr) {
-  return dim3((Xr + k4BX - 1) / k4BX, (Yr + k4BY - 1) / k4BY, (Zr + k4TZ - 1) / k4TZ);
-}
-
 // The plan (grid gx x gy x gz, zchunk coarse planes per block) must cover
 // the padded coarse array exactly once with this file's tile.
 template <typename T>
@@ -462,38 +327,6 @@ int k3_launch(const void* u_, const void* b_, const void* s_, void* rc_, const d
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int k4_launch(const void* x_, const void* b_, const void* s_, const void* ec_, void* out_,
-              const double* w, const int* dz, const int* dy, const int* dx, int ntaps, int Z,
-              int Y, int X, int Zr, int Yr, int Xr, int Ycr, int Xcr, int zero_guess,
-              double alpha_, cudaStream_t st) {
-  Taps<T> t;
-  if (!make_taps(&t, w, dz, dy, dx, ntaps, k4UY * k4UX, k4UX))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const T* x = static_cast<const T*>(x_);
-  const T* b = static_cast<const T*>(b_);
-  const T* s = static_cast<const T*>(s_);
-  const T* ec = static_cast<const T*>(ec_);
-  T* out = static_cast<T*>(out_);
-  const T alpha = static_cast<T>(alpha_);
-  const dim3 grid = k4_grid(Zr, Yr, Xr), block(k4BX, k4BY);
-  const bool scale = s != nullptr;
-  if (!zero_guess && scale) {
-    k4_kernel<T, false, true><<<grid, block, 0, st>>>(x, b, s, ec, out, t, Z, Y, X, Zr, Yr,
-                                                      Xr, Ycr, Xcr, alpha);
-  } else if (!zero_guess) {
-    k4_kernel<T, false, false><<<grid, block, 0, st>>>(x, b, s, ec, out, t, Z, Y, X, Zr, Yr,
-                                                       Xr, Ycr, Xcr, alpha);
-  } else if (scale) {
-    k4_kernel<T, true, true><<<grid, block, 0, st>>>(x, b, s, ec, out, t, Z, Y, X, Zr, Yr, Xr,
-                                                     Ycr, Xcr, alpha);
-  } else {
-    k4_kernel<T, true, false><<<grid, block, 0, st>>>(x, b, s, ec, out, t, Z, Y, X, Zr, Yr,
-                                                      Xr, Ycr, Xcr, alpha);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -509,18 +342,6 @@ int amg_k3_launch(int is_double, const void* u, const void* b, const void* s, vo
                              Zcr, Ycr, Xcr, zero_guess, gx, gy, gz, zchunk, alpha, st);
   return k3_launch<float>(u, b, s, rc, w, dz, dy, dx, ntaps, Z, Y, X, Yr, Xr, Zc, Yc, Xc, Zcr,
                           Ycr, Xcr, zero_guess, gx, gy, gz, zchunk, alpha, st);
-}
-
-int amg_k4_launch(int is_double, const void* x, const void* b, const void* s, const void* ec,
-                  void* out, const double* w, const int* dz, const int* dy, const int* dx,
-                  int ntaps, int Z, int Y, int X, int Zr, int Yr, int Xr, int Ycr, int Xcr,
-                  int zero_guess, double alpha, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    return k4_launch<double>(x, b, s, ec, out, w, dz, dy, dx, ntaps, Z, Y, X, Zr, Yr, Xr, Ycr,
-                             Xcr, zero_guess, alpha, st);
-  return k4_launch<float>(x, b, s, ec, out, w, dz, dy, dx, ntaps, Z, Y, X, Zr, Yr, Xr, Ycr,
-                          Xcr, zero_guess, alpha, st);
 }
 
 }  // extern "C"

@@ -33,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "stencil": "stencil.cu", "box_march": "box_march.cu", "transfer": "transfer.cu",
-    "var_stencil": "var_stencil.cu",
+    "prolong_march": "prolong_march.cu", "var_stencil": "var_stencil.cu",
 }
 _HEADERS = ("common.cuh",)
 FLAGS = (

@@ -1,5 +1,6 @@
 """K3 and K4: the fused transfer kernels (counterpart of
-amg_tpu/ops/pallas_transfer.py; the CUDA kernels are `csrc/transfer.cu`).
+amg_tpu/ops/pallas_transfer.py; the CUDA kernels are `csrc/transfer.cu`
+(K3) and `csrc/prolong_march.cu` (K4)).
 
     residual_restrict_padded:  rc = R (b - A x)           (K3)
     prolong_sweep_padded:      u' = x + P ec;  out = u' + s (b - A u')   (K4)
@@ -19,6 +20,7 @@ serve the unfused branches of `solve.struct_cycle`.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 from typing import Tuple
 
@@ -32,6 +34,7 @@ from amg_tpu_torch.ops.stencil import (
     stencil_plain,
     tap_arrays,
     taps_of,
+    uniform_box_weights,
 )
 
 
@@ -79,11 +82,13 @@ def restrict_padded(r_pad: torch.Tensor, grid_shape) -> torch.Tensor:
     return out
 
 
-def prolong_padded(ec_pad: torch.Tensor, grid_shape) -> torch.Tensor:
-    """Trilinear prolongation, padded coarse (zero shell) -> padded fine."""
+def prolong_padded(ec_pad: torch.Tensor, grid_shape, axes=(0, 1, 2)) -> torch.Tensor:
+    """Trilinear prolongation, padded coarse (zero shell) -> padded fine,
+    one axis after the other in the order `axes`; each mean of two values is
+    one rounded 0.5 * (a + b), so the order decides the float rounding."""
     Z, Y, X = grid_shape
     g = ec_pad
-    for d in range(3):
+    for d in axes:
         g = _prolong_axis(g, d, grid_shape[d])
     out = ec_pad.new_zeros(padded_shape(grid_shape))
     out[1:Z + 1, 1:Y + 1, 1:X + 1] = g
@@ -103,12 +108,20 @@ def residual_restrict_plain(u_pad, b_pad, taps, grid_shape, zero_guess=False,
     return restrict_padded(r_pad, grid_shape)
 
 
+# K4 prolongs as the reference's _ps_kernel does: each coarse plane in y,
+# then in x (its MXU expansion), then each fine plane as the z-mean of two
+# expanded planes
+K4_AXES = (1, 2, 0)
+
+
 def prolong_sweep_plain(x_pad, b_pad, ec_pad, taps, grid_shape, alpha=0.0,
                         scale_pad=None, zero_guess=False):
-    """Plain PyTorch version of K4."""
+    """Plain PyTorch version of K4: u' = x + P ec with P in K4_AXES order,
+    then one sweep of `stencil_plain` (the uniform box summed separably,
+    other taps in list order)."""
     if zero_guess:
         x_pad = _zero_guess_iterate(b_pad, scale_pad, alpha)
-    u2 = x_pad + prolong_padded(ec_pad, grid_shape)
+    u2 = x_pad + prolong_padded(ec_pad, grid_shape, K4_AXES)
     if alpha != 0.0:
         return stencil_plain(u2, b_pad, taps, grid_shape, alpha, None, "sweep")
     return stencil_plain(u2, b_pad, taps, grid_shape, 0.0, scale_pad, "sweep_vec")
@@ -121,11 +134,14 @@ _SIGNATURES = {
         + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
         + [ctypes.c_int] * 17 + [ctypes.c_double, ctypes.c_void_p],
     ),
+}
+_K4_SIGNATURES = {
     "amg_k4_launch": (
         ctypes.c_int,
         [ctypes.c_int] + [ctypes.c_void_p] * 5
         + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 10 + [ctypes.c_double, ctypes.c_void_p],
+        + [ctypes.c_int] * 2 + [ctypes.c_double] * 2 + [ctypes.c_int] * 14
+        + [ctypes.c_double, ctypes.c_void_p],
     ),
 }
 
@@ -164,6 +180,64 @@ def k3_bytes(grid_shape, dtype: torch.dtype, zero_guess: bool, scaled: bool) -> 
     return (reads * fine + coarse) * item
 
 
+# K4's launch plan. K4_TILE mirrors the (y, x) output tile of one block in
+# csrc/prolong_march.cu (kTY, kTX), which refuses a plan that does not cover
+# the padded fine array with it. As K3's plan: the longest chunk, up to
+# K4_MAX_ZCHUNK planes, that still gives K4_MIN_BLOCKS blocks (three per SM
+# of the H100's 132; the kernel's registers let it hold four to six), else
+# chunks of one plane. That is 16-plane chunks (512 blocks) at 126^3, 4 at
+# 63^3 and 1 at 32^3, within 6% of the fastest chunk lengths measured there
+# with tools/torch_k4_variants.py: fewer, longer chunks leave the SMs short
+# of blocks, more blocks than fit run as a second wave, and each chunk warms
+# up over two extra planes and three coarse ones.
+K4_TILE = (8, 32)
+K4_MAX_ZCHUNK = 16
+K4_MIN_BLOCKS = 3 * 132
+
+
+def k4_plan(grid_shape) -> Tuple[int, Tuple[int, int, int]]:
+    """(zchunk, (gx, gy, gz)) of K4's launch for a fine interior grid_shape:
+    block (bx, by, bz) owns the padded fine columns bx*32 .. +31 (x) and
+    by*8 .. +7 (y) of planes bz*zchunk .. +zchunk-1."""
+    Zr, Yr, Xr = padded_shape(grid_shape)
+    gx, gy = math.ceil(Xr / K4_TILE[1]), math.ceil(Yr / K4_TILE[0])
+    zchunk = 1
+    for zc in range(K4_MAX_ZCHUNK, 1, -1):
+        if math.ceil(Zr / zc) * gx * gy >= K4_MIN_BLOCKS:
+            zchunk = zc
+            break
+    return zchunk, (gx, gy, math.ceil(Zr / zchunk))
+
+
+def k4_bytes(grid_shape, dtype: torch.dtype, zero_guess: bool, scaled: bool) -> int:
+    """Bytes K4 must move, each padded stream once: x (not under zero_guess),
+    b and s (when `scaled`) and the padded coarse ec read, out written."""
+    item = torch.empty((), dtype=dtype).element_size()
+    fine = math.prod(padded_shape(grid_shape))
+    coarse = math.prod(padded_shape(coarse_shape_of(grid_shape)))
+    fine_streams = (0 if zero_guess else 1) + 1 + scaled + 1
+    return (fine_streams * fine + coarse) * item
+
+
+_PRODUCT27 = tuple(itertools.product((-1, 0, 1), repeat=3))
+
+
+def k4_route(taps) -> int:
+    """K4's route for a tap list (csrc/prolong_march.cu, enum Route): 1 the
+    uniform box, 2 the 27 taps at (-1, 0, 1)^3 in product order (the RAP
+    levels' layout), 0 any other list."""
+    if uniform_box_weights(taps) is not None:
+        return 1
+    return 2 if tuple(t[:3] for t in taps) == _PRODUCT27 else 0
+
+
+def _check_aligned(what, **tensors):
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} copies 16-byte chunks and needs a 16-byte-"
+                             f"aligned tensor (a view at an offset is not)")
+
+
 def _check_transfer(grid_shape, offsets):
     if not transfer_fuse_ok(grid_shape, coarse_shape_of(grid_shape), offsets):
         raise ValueError("fused transfers need (s+1)//2 coarsening and reach-1 taps")
@@ -196,10 +270,7 @@ def residual_restrict_padded(
         return residual_restrict_plain(
             u_pad, b_pad, taps, grid_shape, zero_guess, scale_pad, alpha
         )
-    for name, t in (("u_pad", u_pad), ("b_pad", b_pad), ("scale_pad", scale_pad)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name}: K3 copies 16-byte chunks and needs a 16-byte-aligned "
-                             f"tensor (a view at an offset is not)")
+    _check_aligned("K3", u_pad=u_pad, b_pad=b_pad, scale_pad=scale_pad)
     lib = _build.load("transfer", _SIGNATURES)
     Z, Y, X = grid_shape
     cs = coarse_shape_of(grid_shape)
@@ -217,6 +288,28 @@ def residual_restrict_padded(
 
 
 residual_restrict_padded.launches = 0
+
+
+def _launch_k4(x_pad, b_pad, scale_pad, ec_pad, taps, grid_shape, alpha, zero_guess,
+               plan=None):
+    """K4's kernel under k4_plan's plan unless `plan` is given, on the route
+    that k4_route picks; every route sums as the plain version does."""
+    _check_aligned("K4", x_pad=x_pad, b_pad=b_pad, scale_pad=scale_pad, ec_pad=ec_pad)
+    lib = _build.load("prolong_march", _K4_SIGNATURES)
+    Z, Y, X = grid_shape
+    zchunk, grid = k4_plan(grid_shape) if plan is None else plan
+    out = torch.empty_like(b_pad)
+    w, dz, dy, dx, n = tap_arrays(taps)
+    box = uniform_box_weights(taps)
+    w_off, w_c = box if box is not None else (0.0, 0.0)
+    _build.launch(
+        lib.amg_k4_launch, "prolong-sweep kernel (K4)", b_pad.device,
+        int(b_pad.dtype == torch.float64), _build.ptr(x_pad), _build.ptr(b_pad),
+        _build.ptr(scale_pad), _build.ptr(ec_pad), _build.ptr(out), w, dz, dy, dx, n,
+        k4_route(taps), float(w_off), float(w_c - w_off), Z, Y, X, *b_pad.shape,
+        *ec_pad.shape, int(zero_guess), *grid, zchunk, float(alpha),
+    )
+    return out
 
 
 def prolong_sweep_padded(
@@ -248,16 +341,7 @@ def prolong_sweep_padded(
         return prolong_sweep_plain(
             x_pad, b_pad, ec_pad, taps, grid_shape, alpha, scale_pad, zero_guess
         )
-    lib = _build.load("transfer", _SIGNATURES)
-    Z, Y, X = grid_shape
-    out = torch.empty_like(b_pad)
-    w, dz, dy, dx, n = tap_arrays(taps)
-    _build.launch(
-        lib.amg_k4_launch, "prolong-sweep kernel (K4)", b_pad.device,
-        int(b_pad.dtype == torch.float64), _build.ptr(x_pad), _build.ptr(b_pad),
-        _build.ptr(scale_pad), _build.ptr(ec_pad), _build.ptr(out), w, dz, dy, dx, n,
-        Z, Y, X, *shape, ec_pad.shape[1], ec_pad.shape[2], int(zero_guess), float(alpha),
-    )
+    out = _launch_k4(x_pad, b_pad, scale_pad, ec_pad, taps, grid_shape, alpha, zero_guess)
     prolong_sweep_padded.launches += 1
     return out
 

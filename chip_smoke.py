@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
      (the uniform box: K1 through the box march, `csrc/box_march.cu`) and at
      the coarse shapes 63^3 and 32^3 with the real RAP taps (K1 through
      `csrc/stencil.cu`), in float32 (max relative error <= 1e-5 on the
-     interior) and float64 (<= 1e-12), shells exactly 0; for the box, also
-     whether the kernel equals its plain version bit for bit (logged);
+     interior) and float64 (<= 1e-12), shells exactly 0; for the box (K1)
+     and for K4 on both routes, also whether the kernel equals its plain
+     version bit for bit (logged);
   4. K2 (the box march at K = 2..4): modes sweep2|3|4 and _vec at 126^3 and
      sweep3 at 190^3 (the JAX bench's headline shape), float32 and float64,
      against the plain version (the same tolerances) and bit for bit against
@@ -53,7 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
      zero-guess launches at the path's 63^3 and 32^3 levels, with those
      levels' RAP taps and smoother scale (`make_coarse_specs`), beside
      their plain versions and byte bounds (b, s and rc once each,
-     `ops/transfer.py::k3_bytes`); K1's tap-list route in the sweeps of the
+     `ops/transfer.py::k3_bytes`), and K4's zero-guess launches there
+     (b, s, ec and out once each, `k4_bytes`); K1's tap-list route in the sweeps of the
      V(3,3) path's 63^3 and 32^3 levels (their RAP taps and scale) beside
      their byte bounds; K2 in sweep2_vec and sweep3_vec at 126^3 and
      sweep2_vec and sweep3 at 190^3 (the JAX bench's headline), each beside
@@ -214,6 +216,8 @@ def kernel_phase(hier64, device):
                     p = prolong_sweep_plain(u, b, ec, taps, gs, a, sa, zg)
                     tag = f"K4 zg={int(zg)} {'alpha' if a else 'scale'} {kind} {gs}"
                     fails.append(compare(tag, k, p, gs, dn, errs))
+                    log(f"  {tag} {dn}: equal to the plain version bit for bit: "
+                        f"{bool(torch.equal(k, p))}")
     torch.cuda.synchronize()
     fails = [f for f in fails if f]
     return errs, fails
@@ -336,6 +340,7 @@ def timing_phase(hier32, device, counts, iters):
     from amg_tpu_torch.ops.transfer import (
         coarse_shape_of,
         k3_bytes,
+        k4_bytes,
         prolong_sweep_padded,
         prolong_sweep_plain,
         residual_restrict_padded,
@@ -357,7 +362,6 @@ def timing_phase(hier32, device, counts, iters):
     ]
     s = spec.scale_pad
     state_bytes = sets[0][0].numel() * 4
-    coarse_bytes = sets[0][2].numel() * 4
     pts = int(np.prod(gs))
     nt = len(taps)
     results = {}
@@ -386,14 +390,16 @@ def timing_phase(hier32, device, counts, iters):
             sets[i % 4][0], sets[i % 4][1], taps, gs), 10),
         library_ms=None, bytes=k3_bytes(gs, torch.float32, False, False), flops=k3_flops,
     )
-    k4_bytes = 4 * state_bytes + coarse_bytes  # x, b, s, ec in; out
-    k4_flops = 2 * nt * pts + 4 * pts + 2 * 8 * pts
+    # x, b, s, ec in; out. Operations per point on the box: the z-, y- and
+    # x-sums 6, the combine 3, the update 3; u' = x + P ec at most 5 (the
+    # add, the z-mean and the y- and x-means at most 2 each)
+    k4_flops = (12 + 5) * pts
     results["K4"] = dict(
         ms=cuda_time(lambda i: prolong_sweep_padded(
             sets[i % 4][0], sets[i % 4][1], sets[i % 4][2], w, gs, off, scale_pad=s), 50),
         plain_ms=cuda_time(lambda i: prolong_sweep_plain(
             sets[i % 4][0], sets[i % 4][1], sets[i % 4][2], taps, gs, 0.0, s), 10),
-        library_ms=None, bytes=k4_bytes, flops=k4_flops,
+        library_ms=None, bytes=k4_bytes(gs, torch.float32, False, True), flops=k4_flops,
     )
     for name, r in results.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -441,6 +447,24 @@ def timing_phase(hier32, device, counts, iters):
         log(f"K1 tap-list route level {lvl} at {cgs} float32 ({mode}, {len(coff)} RAP taps): "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"(bytes, {nbytes / 1e6:.3f} MB)")
+        # K4's zero-guess launch: the level's up-visit, u' = s*b + P ec and
+        # one sweep, with a random coarse correction
+        ecsets = [rand_pad(rng, coarse_shape_of(cgs), torch.float32, device) for _ in range(4)]
+        nbytes = k4_bytes(cgs, torch.float32, True, sa is not None)
+        r = dict(
+            ms=cuda_time(lambda i: prolong_sweep_padded(
+                None, bsets[i % 4], ecsets[i % 4], cw, cgs, coff, alpha=cspec.alpha,
+                scale_pad=sa, zero_guess=True), 50),
+            plain_ms=cuda_time(lambda i: prolong_sweep_plain(
+                None, bsets[i % 4], ecsets[i % 4], taps_of(cw, coff), cgs, cspec.alpha, sa,
+                True), 10),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
+        )
+        results[f"K4 zero-guess level {lvl}"] = r
+        log(f"K4 zero-guess level {lvl} at {cgs} float32 ({'scale' if sa is not None else 'alpha'}"
+            f", {len(coff)} RAP taps): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.3f} MB: b, "
+            f"{'s, ' if sa is not None else ''}ec, out once each)")
     return results
 
 
@@ -1042,7 +1066,7 @@ def main() -> int:
         "K1": ("amg_tpu_torch/csrc/box_march.cu", "amg_tpu/ops/pallas_stencil.py:269"),
         "K2": ("amg_tpu_torch/csrc/box_march.cu", "amg_tpu/ops/pallas_stencil.py:82"),
         "K3": ("amg_tpu_torch/csrc/transfer.cu", "amg_tpu/ops/pallas_transfer.py:181"),
-        "K4": ("amg_tpu_torch/csrc/transfer.cu", "amg_tpu/ops/pallas_transfer.py:404"),
+        "K4": ("amg_tpu_torch/csrc/prolong_march.cu", "amg_tpu/ops/pallas_transfer.py:404"),
         "K5": ("amg_tpu_torch/csrc/var_stencil.cu", "amg_tpu/ops/pallas_var_stencil.py:98"),
     }
     # what each entry's time is of: K1 sweep_vec_norm (the box march), K3 and

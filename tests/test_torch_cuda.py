@@ -5,11 +5,13 @@ counted. K2 is also held bit for bit against K chained K1 launches. K1 on
 the uniform 27-point box and K2 run through the box march
 (`csrc/box_march.cu`), K1 on other taps through `csrc/stencil.cu`; the box
 march is also run at the edges of its launch plan (chunks of one plane,
-chunks that do not divide the planes, one chunk longer than the array).
+chunks that do not divide the planes, one chunk longer than the array), and
+so is K4 (`csrc/prolong_march.cu`), which is held bit for bit against its
+plain version on both routes (the uniform box and a tap list).
 
 Marked `cuda`; without a card every test skips. On a machine with one:
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda   # -k k1, -k k2, -k box
+    python -m pytest tests/test_torch_cuda.py -q -m cuda   # -k k1, -k k2, -k box, -k k4
 
 Tolerances: float64 to 1e-12 and float32 to 1e-5, relative to the largest
 interior value (the kernels fuse multiply-adds and sum in their own order);
@@ -183,6 +185,97 @@ def test_k3_k4_match_plain(device, gs, dtype):
                                           scale_pad=sa, zero_guess=zg)
             want = tt.prolong_sweep_plain(u, b, ec, taps, gs, alpha, sa, zg)
             _check(got, want, gs, dtype)
+            assert torch.equal(got, want), (zg, alpha)
+
+
+# K4's plan at its edges: sides under one 32x8 tile and one-plane chunks
+# (the SHAPES), 10-plane chunks that do not divide the 62 padded planes of
+# (60, 96, 128); the main path's shapes: 126^3 (16-plane chunks), 63^3 (4)
+# and 32^3 (1)
+K4_EDGE_SHAPES = SHAPES + [(60, 96, 128), (126, 126, 126), (63, 63, 63), (32, 32, 32)]
+
+
+def _k4_modes(u, b, s, ec, w, offs, gs, plan=None):
+    """(zero_guess, alpha, kernel out, plain out) in K4's four modes."""
+    taps = ts.taps_of(w, offs)
+    for zg in (False, True):
+        for alpha in (0.0, 0.03):
+            sa = None if alpha else s
+            if plan is None:
+                before = tt.prolong_sweep_padded.launches
+                got = tt.prolong_sweep_padded(u, b, ec, w, gs, offs, alpha=alpha,
+                                              scale_pad=sa, zero_guess=zg)
+                assert tt.prolong_sweep_padded.launches == before + 1
+            else:
+                got = tt._launch_k4(None if zg else u, b, sa, ec, taps, gs, alpha, zg, plan)
+            yield zg, alpha, got, tt.prolong_sweep_plain(u, b, ec, taps, gs, alpha, sa, zg)
+
+
+def _reversed(w, offs):
+    """The same taps listed in reverse: not the product order, so K4 takes
+    its route for any tap list."""
+    return tuple(reversed(w)), tuple(reversed(offs))
+
+
+@pytest.mark.parametrize("route", ["box", "dense27", "list"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs", K4_EDGE_SHAPES, ids=str)
+def test_k4_equals_plain_bit_for_bit(device, gs, dtype, route):
+    """K4 on its three routes: the uniform box (separable), 27 distinct taps
+    in product order and the same taps reversed (both in list order); both
+    zero_guess modes, scale and alpha: equal to the plain version."""
+    rng = np.random.default_rng(8)
+    w, offs = {"box": _box, "dense27": lambda: _taps(5),
+               "list": lambda: _reversed(*_taps(5))}[route]()
+    assert tt.k4_route(ts.taps_of(w, offs)) == {"list": 0, "box": 1, "dense27": 2}[route]
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.02 * _pad(rng, gs, dtype, device)
+    ec = _pad(rng, tt.coarse_shape_of(gs), dtype, device)
+    for zg, alpha, got, want in _k4_modes(u, b, s, ec, w, offs, gs):
+        _check(got, want, gs, dtype)
+        assert torch.equal(got, want), (zg, alpha)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("zchunk", [1, 2, 3, 5, 19, 24])
+def test_k4_at_plan_edges(device, zchunk, dtype):
+    """K4 under explicit plans on 17 x 18 x 16 (19 padded planes): chunks of
+    one plane, chunks that start on odd planes, chunks that do not divide the
+    planes, one chunk as long as the array and one longer."""
+    gs = (17, 18, 16)
+    Zr, Yr, Xr = ts.padded_shape(gs)
+    plan = (zchunk, (-(-Xr // tt.K4_TILE[1]), -(-Yr // tt.K4_TILE[0]), -(-Zr // zchunk)))
+    rng = np.random.default_rng(9)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.02 * _pad(rng, gs, dtype, device)
+    ec = _pad(rng, tt.coarse_shape_of(gs), dtype, device)
+    for w, offs in (_box(), _taps(6), _reversed(*_taps(6))):
+        for zg, alpha, got, want in _k4_modes(u, b, s, ec, w, offs, gs, plan):
+            _check(got, want, gs, dtype)
+            assert torch.equal(got, want), (zg, alpha)
+
+
+def test_k4_refuses_a_misaligned_view(device):
+    """K4 copies x, b, s and ec in 16-byte chunks: a view at an offset that
+    breaks the alignment raises, and nothing is launched."""
+    gs = (8, 8, 8)
+    shape = ts.padded_shape(gs)
+    flat = torch.zeros(int(np.prod(shape)) + 1, device=device)
+    bad = flat[1:].view(shape)
+    good = torch.zeros(shape, device=device)
+    cshape = ts.padded_shape(tt.coarse_shape_of(gs))
+    ec = torch.zeros(cshape, device=device)
+    bad_ec = torch.zeros(int(np.prod(cshape)) + 1, device=device)[1:].view(cshape)
+    before = tt.prolong_sweep_padded.launches
+    for w, offs in (_box(), _taps(5)):
+        for x, b, s in ((bad, good, good), (good, bad, good), (good, good, bad)):
+            with pytest.raises(ValueError, match="16-byte"):
+                tt.prolong_sweep_padded(x, b, ec, w, gs, offs, scale_pad=s)
+        with pytest.raises(ValueError, match="16-byte"):
+            tt.prolong_sweep_padded(None, good, ec, w, gs, offs, scale_pad=bad, zero_guess=True)
+        with pytest.raises(ValueError, match="16-byte"):
+            tt.prolong_sweep_padded(good, good, bad_ec, w, gs, offs, scale_pad=good)
+    assert tt.prolong_sweep_padded.launches == before
 
 
 # K3's launch plan at its edges: a coarse side smaller than one 16x8 tile;

@@ -6,12 +6,17 @@ run in interpret mode on the CPU, at shapes where the JAX kernels apply
 The same float64 inputs, drawn with numpy from fixed seeds, go through both.
 Tolerance: atol 1e-12 on the interior. The transfer weights are powers of two,
 so the two sides differ only in the summation order of the stencil taps.
+K4's plain version prolongs in the reference kernel's order (y, then x, then
+z) and is also held against it in float32, on the uniform box, where it sums
+the box in the reference's order too (see the float32 test for the ulps).
+The launch plans of K3 and K4 are checked for coverage at their edges.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -122,6 +127,64 @@ def test_k4_plain_matches_pallas(gs, kind, alpha, zero_guess):
     _assert_interior(got, want, gs)
 
 
+# float32: XLA on the CPU may contract the Pallas kernel's combine and update
+# into FMAs, so about a fifth of the points differ by an ulp of the largest
+# values (measured: at most 1.2 ulps); held to 4 ulps of the largest value.
+@pytest.mark.parametrize("zero_guess", [False, True])
+@pytest.mark.parametrize("alpha", [0.0, 0.021])
+def test_k4_plain_matches_pallas_in_float32(alpha, zero_guess):
+    gs = (16, 16, 16)
+    weights, offsets = _taps("box")
+    cs = tt.coarse_shape_of(gs)
+    u, b, s, ec = (v.astype(np.float32) for v in _inputs(gs, seed=13))
+    scale = None if alpha else s
+    with pltpu.force_tpu_interpret_mode():
+        want = pt.prolong_sweep_padded(
+            None if zero_guess else _jax(u, gs), _jax(b, gs), _jax(ec, cs),
+            weights, gs, offsets, alpha=alpha,
+            scale_pad=None if scale is None else _jax(scale, gs), slab=8,
+            zero_guess=zero_guess,
+        )
+    got = tt.prolong_sweep_padded(
+        None if zero_guess else _port(u, gs), _port(b, gs), _port(ec, cs),
+        weights, gs, offsets, alpha=alpha,
+        scale_pad=None if scale is None else _port(scale, gs),
+        zero_guess=zero_guess,
+    )
+    assert got.dtype == torch.float32
+    wi = np.asarray(ps.from_padded(want, gs))
+    gi = ts.from_padded(got, gs).numpy()
+    assert np.abs(gi - wi).max() <= 4 * np.finfo(np.float32).eps * np.abs(wi).max()
+
+
+@pytest.mark.parametrize("gs", [(16, 16, 16), (17, 18, 15)], ids=str)
+def test_k4_prolongs_in_the_reference_order(gs):
+    """In float32, P ec in K4_AXES order equals the reference kernel's
+    expansion bit for bit: each coarse plane times its y and x transfer
+    matrices (`_axis_mat_reg`, as `_ps_kernel` multiplies them), then each
+    fine plane the expanded plane or the mean 0.5 * (a + b) of two. The
+    order of the unfused `prolong_padded` (z, y, x) rounds otherwise."""
+    cs = tt.coarse_shape_of(gs)
+    ec = np.random.default_rng(5).standard_normal(int(np.prod(cs))).astype(np.float32)
+    ecp = _port(ec, cs)
+    Zcr, Ycr, Xcr = ecp.shape
+    Z, Y, X = gs
+    Zr, Yr, Xr = ts.padded_shape(gs)
+    dims = (((1,), (0,)), ((), ()))
+    with jax.enable_x64(False):
+        sy = pt._axis_mat_reg(Y, cs[1], Yr, Ycr, jnp.float32, transpose=True)
+        sx = pt._axis_mat_reg(X, cs[2], Xr, Xcr, jnp.float32, transpose=True)
+        e = jax.lax.dot_general(jnp.asarray(ecp.numpy()), sy, dims,
+                                preferred_element_type=jnp.float32, precision=pt._DOT_PREC)
+        e = np.asarray(jax.lax.dot_general(e, sx, dims, preferred_element_type=jnp.float32,
+                                           precision=pt._DOT_PREC))
+    want = np.zeros((Zr, Yr, Xr), np.float32)
+    for p in range(1, Z + 1):
+        want[p] = e[(p + 1) // 2] if p % 2 else np.float32(0.5) * (e[p // 2] + e[p // 2 + 1])
+    assert np.array_equal(tt.prolong_padded(ecp, gs, tt.K4_AXES).numpy(), want)
+    assert not np.array_equal(tt.prolong_padded(ecp, gs).numpy(), want)
+
+
 @pytest.mark.parametrize("gs", [(9, 10, 11), (16, 16, 16)], ids=str)
 def test_plain_transfers_match_the_transfer_matrices(gs):
     """restrict_padded / prolong_padded are R = S^T and P = S per axis, with
@@ -215,3 +278,70 @@ def test_k3_plan_at_the_main_path_shapes():
     assert tt.k3_plan((32,) * 3) == (1, (2, 3, 18))
     zchunk, (gx, gy, gz) = tt.k3_plan((63,) * 3)
     assert gx * gy * gz >= 264
+
+
+def test_k4_route_follows_the_tap_list():
+    """K4's routes: the uniform box; 27 taps at (-1, 0, 1)^3 in product order
+    (the RAP levels' layout, whatever the weights); any other list."""
+    box_w, offs = _taps("box")
+    rap_w, _ = _taps("rap27")
+    assert tt.k4_route(ts.taps_of(box_w, offs)) == 1
+    assert tt.k4_route(ts.taps_of(rap_w, offs)) == 2
+    assert tt.k4_route(ts.taps_of(rap_w[::-1], offs[::-1])) == 0
+    assert tt.k4_route(ts.taps_of(rap_w[:7], offs[:7])) == 0
+
+
+def _k4_cover(gs, plan):
+    zchunk, (gx, gy, gz) = plan
+    ty, tx = tt.K4_TILE
+    cover = np.zeros((gz * zchunk, gy * ty, gx * tx), dtype=int)
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                cover[bz * zchunk:(bz + 1) * zchunk, by * ty:(by + 1) * ty,
+                      bx * tx:(bx + 1) * tx] += 1
+    return cover
+
+
+# K4's plan at its edges: sides under one 32x8 tile; an odd Z; 10-plane chunks
+# that do not divide the 62 padded planes of (60, 96, 128); the main path's
+# 126^3, 63^3 and 32^3
+@pytest.mark.parametrize("gs", [(3, 4, 5), (17, 18, 16), (33, 9, 70), (60, 96, 128),
+                                (126, 126, 126), (63, 63, 63), (32, 32, 32)], ids=str)
+def test_k4_plan_covers_every_fine_plane_once(gs):
+    """Every padded fine point lies in exactly one block's (x, y) tile and
+    z-chunk, no block lies wholly outside the array, and the grid has
+    >= 3 x 132 blocks wherever the array allows it with one-plane chunks."""
+    zchunk, (gx, gy, gz) = tt.k4_plan(gs)
+    Zr, Yr, Xr = ts.padded_shape(gs)
+    ty, tx = tt.K4_TILE
+    assert 1 <= zchunk <= tt.K4_MAX_ZCHUNK
+    assert (_k4_cover(gs, (zchunk, (gx, gy, gz))) == 1).all()
+    assert (gx - 1) * tx < Xr and (gy - 1) * ty < Yr and (gz - 1) * zchunk < Zr
+    assert gx * tx >= Xr and gy * ty >= Yr and gz * zchunk >= Zr
+    assert gx * gy * gz >= min(tt.K4_MIN_BLOCKS, Zr * gx * gy)
+    if gs == (60, 96, 128):
+        assert zchunk > 1 and gz * zchunk != Zr
+
+
+def test_k4_plan_at_the_main_path_shapes():
+    # 126^3: 16-plane chunks, 512 blocks; 63^3: 4-plane chunks, 459 blocks;
+    # 32^3: one-plane chunks, 340 blocks (the array allows no more)
+    assert tt.k4_plan((126,) * 3) == (16, (4, 16, 8))
+    assert tt.k4_plan((63,) * 3) == (4, (3, 9, 17))
+    assert tt.k4_plan((32,) * 3) == (1, (2, 5, 34))
+
+
+@pytest.mark.parametrize("dtype,gs,zero_guess,scaled,want", [
+    # 126^3: padded fine (128, 128, 128), padded coarse (65, 65, 68)
+    (torch.float32, (126,) * 3, False, True, (4 * 128 ** 3 + 65 * 65 * 68) * 4),
+    (torch.float64, (126,) * 3, False, False, (3 * 128 ** 3 + 65 * 65 * 68) * 8),
+    # 63^3 zero-guess: padded fine (65, 65, 68), padded coarse (34, 34, 36)
+    (torch.float32, (63,) * 3, True, True, (3 * 65 * 65 * 68 + 34 * 34 * 36) * 4),
+    # 32^3 zero-guess: padded fine (34, 34, 36), padded coarse (18, 18, 20)
+    (torch.float32, (32,) * 3, True, False, (2 * 34 * 34 * 36 + 18 * 18 * 20) * 4),
+], ids=["126-f32", "126-f64-alpha", "63-zg-scale", "32-zg-alpha"])
+def test_k4_bytes_counts_each_padded_stream_once(dtype, gs, zero_guess, scaled, want):
+    assert tt.k4_bytes(gs, dtype, zero_guess, scaled) == want
+    if gs == (126,) * 3 and dtype == torch.float32:
+        assert round(want / 1e6, 1) == 34.7
