@@ -8,7 +8,7 @@
 //     u^{k} = u^{k-1} + s (b - A u^{k-1}), k = 1 .. K, s a scalar alpha or a
 //     streamed per-point scale.
 // Every stage writes 0 off the interior (the shell and the pad columns), as
-// the reference does. Other tap lists go to csrc/stencil.cu.
+// the reference does. Other tap lists go to csrc/tap_march.cu.
 //
 // Bound on the H100: bytes. A launch reads u, b (and s) and writes its
 // output once: 3-4 state arrays (8.4 MB each at 126^3 in float32), ~10 us at

@@ -16,8 +16,8 @@ constexpr int kMaxTaps = 27;
 
 // A constant stencil, passed to the kernel by value: tap k adds
 // w[k] * v[i + off[k]], where off[k] = dz*plane + dy*row + dx (|d| <= 1) is
-// the tap's linear offset in the array the kernel reads (device memory or a
-// shared-memory tile), computed on the host. Taps are summed in list order.
+// the tap's linear offset in the array the kernel reads (a shared-memory
+// tile or ring), computed on the host. Taps are summed in list order.
 template <typename T>
 struct Taps {
   T w[kMaxTaps];
@@ -41,25 +41,6 @@ inline bool make_taps(Taps<T>* t, const double* w, const int* dz, const int* dy,
     t->off[k] = dz[k] * plane + dy[k] * row + dx[k];
   }
   return true;
-}
-
-// sum_k w[k] * v(i + off[k]) for a value source v(linear index); I is the
-// index type (64-bit for device arrays, 32-bit for a shared-memory tile).
-template <typename T, typename I, typename Src>
-__device__ __forceinline__ T apply_taps(const Taps<T>& t, I i, Src v) {
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < kMaxTaps; ++k) {
-    if (k < t.n) acc += t.w[k] * v(i + t.off[k]);
-  }
-  return acc;
-}
-
-// One weighted-Jacobi update u + s (b - acc), acc = (A u)(p), for the tap-list
-// kernels (K1's general route; the box route and K2 use jacobi_update_rn).
-template <typename T>
-__device__ __forceinline__ T jacobi_update(T u, T b, T s, T acc) {
-  return u + s * (b - acc);
 }
 
 // Separately rounded arithmetic: the compiler may not contract these into an

@@ -67,7 +67,7 @@ using namespace amg;
 
 namespace {
 
-constexpr int kTX = 32;  // tile, x; ops/transfer.py::K4_TILE mirrors (kTY, kTX)
+constexpr int kTX = 32;  // tile, x; ops/stencil.py::ZMARCH_TILE mirrors (kTY, kTX)
 constexpr int kTY = 8;   // tile, y
 constexpr int kNT = 256;
 constexpr int kHX = 4;              // window columns each side of the tile

@@ -9,12 +9,17 @@
 //   0 spmv      out = A u,            (A u)(p) = sum_t c[t](p) u(p + off_t)
 //   1 residual  out = b - A u
 //   2 sweep     out = u + s (b - A u)
+// The sweep also takes its planes as bf16 beside a float32 or float64 state
+// (the reference's c_sweep stream, DiaKernelOperator.with_sweep_dtype): each
+// coefficient is widened exactly (__bfloat162float, then to double for a
+// float64 state) before its multiply, as the reference's
+// cbufs[...].astype(ubufs.dtype) * blk does.
 //
 // Bound on the H100: bytes. The m coefficient planes are the matrix and are
 // read once per application: for the 99-diagonal elasticity operator at 157k
-// dofs that is 99 planes of 157,035 points, 62 MB in float32, against 0.8 MB
-// per padded state vector; 2 flops per coefficient read is far below the
-// card's 20 flops per byte in float32.
+// dofs that is 99 planes of 157,035 points, 62 MB in float32 (31 MB as bf16),
+// against 0.8 MB per padded state vector; 2 flops per coefficient read is far
+// below the card's 20 flops per byte in float32.
 //
 // Design: one thread per padded point in a flat 1-D grid, the taps' linear
 // offsets passed by value (__grid_constant__: read in place from the
@@ -26,6 +31,7 @@
 // coefficient and write 0. Taps are summed in list order, each product and
 // sum rounded on its own (below). No shared-memory tiling (each coefficient
 // is used once), TMA or asynchronous copies yet.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -46,15 +52,27 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
+// a coefficient in the state's type T: as it is, or a bf16 value widened
+// exactly (every bf16 value is a float, and every float a double)
+template <typename T>
+__device__ __forceinline__ T widen(T c) {
+  return c;
+}
+template <typename T>
+__device__ __forceinline__ T widen(__nv_bfloat16 c) {
+  return static_cast<T>(__bfloat162float(c));
+}
+
 // linear offsets dz*plane + dy*row + dx of the m diagonals
 struct VarTaps {
   int off[kMaxVarTaps];
   int n;
 };
 
-template <typename T, int kMode>
+// C: the coefficient planes' type, T or (sweep only) __nv_bfloat16
+template <typename T, typename C, int kMode>
 __global__ void __launch_bounds__(kThreads)
-    k5_kernel(const T* __restrict__ u, const T* __restrict__ c, const T* __restrict__ b,
+    k5_kernel(const T* __restrict__ u, const C* __restrict__ c, const T* __restrict__ b,
               const T* __restrict__ s, T* __restrict__ out, const __grid_constant__ VarTaps taps,
               int hz, int hy,
               int hx, int Z, int Y, int X, int Yr, int Xr, long long vol) {
@@ -66,11 +84,11 @@ __global__ void __launch_bounds__(kThreads)
   T val = T(0);
   if (z >= hz && z < hz + Z && y >= hy && y < hy + Y && x >= hx && x < hx + X) {
     const long long plane = static_cast<long long>(Z) * Y * X;
-    const T* cp = c + (static_cast<long long>(z - hz) * Y + (y - hy)) * X + (x - hx);
+    const C* cp = c + (static_cast<long long>(z - hz) * Y + (y - hy)) * X + (x - hx);
     T acc = T(0);
 #pragma unroll 4
     for (int t = 0; t < taps.n; ++t)
-      acc = add_rn(acc, mul_rn(__ldg(cp + t * plane), __ldg(u + i + taps.off[t])));
+      acc = add_rn(acc, mul_rn(widen<T>(__ldg(cp + t * plane)), __ldg(u + i + taps.off[t])));
     if (kMode == kSpmv) {
       val = acc;
     } else if (kMode == kResidual) {
@@ -82,27 +100,35 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = val;
 }
 
-template <typename T>
-int launch(const void* u, const void* c, const void* b, const void* s, void* out,
-           const VarTaps& taps, int hz, int hy, int hx, int Z, int Y, int X, int Zr, int Yr,
-           int Xr, int mode, cudaStream_t stream) {
-  const long long vol = static_cast<long long>(Zr) * Yr * Xr;
-  const dim3 grid(static_cast<unsigned>((vol + kThreads - 1) / kThreads));
-  const T* uu = static_cast<const T*>(u);
-  const T* cc = static_cast<const T*>(c);
-  const T* bb = static_cast<const T*>(b);
-  const T* ss = static_cast<const T*>(s);
-  T* oo = static_cast<T*>(out);
-  if (mode == kSpmv)
-    k5_kernel<T, kSpmv><<<grid, kThreads, 0, stream>>>(uu, cc, bb, ss, oo, taps, hz, hy, hx, Z,
-                                                       Y, X, Yr, Xr, vol);
-  else if (mode == kResidual)
-    k5_kernel<T, kResidual><<<grid, kThreads, 0, stream>>>(uu, cc, bb, ss, oo, taps, hz, hy, hx,
-                                                           Z, Y, X, Yr, Xr, vol);
-  else
-    k5_kernel<T, kSweep><<<grid, kThreads, 0, stream>>>(uu, cc, bb, ss, oo, taps, hz, hy, hx, Z,
-                                                        Y, X, Yr, Xr, vol);
+// the operands of one launch
+struct K5Args {
+  const void* u;
+  const void* c;
+  const void* b;
+  const void* s;
+  void* out;
+  int hz, hy, hx, Z, Y, X, Yr, Xr;
+  long long vol;  // Zr * Yr * Xr
+};
+
+template <typename T, typename C, int kMode>
+int launch(const K5Args& a, const VarTaps& taps, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((a.vol + kThreads - 1) / kThreads));
+  k5_kernel<T, C, kMode><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.u), static_cast<const C*>(a.c), static_cast<const T*>(a.b),
+      static_cast<const T*>(a.s), static_cast<T*>(a.out), taps, a.hz, a.hy, a.hx, a.Z, a.Y,
+      a.X, a.Yr, a.Xr, a.vol);
   return static_cast<int>(cudaGetLastError());
+}
+
+// state of type T: the three modes on planes of T, or the sweep on bf16 planes
+template <typename T>
+int launch_state(int coef_bf16, int mode, const K5Args& a, const VarTaps& taps,
+                 cudaStream_t stream) {
+  if (coef_bf16) return launch<T, __nv_bfloat16, kSweep>(a, taps, stream);
+  if (mode == kSpmv) return launch<T, T, kSpmv>(a, taps, stream);
+  if (mode == kResidual) return launch<T, T, kResidual>(a, taps, stream);
+  return launch<T, T, kSweep>(a, taps, stream);
 }
 
 int iabs(int v) { return v < 0 ? -v : v; }
@@ -112,14 +138,17 @@ int imax(int a, int b) { return a > b ? a : b; }
 
 extern "C" {
 
-// u, b, s, out: (Zr, Yr, Xr) padded arrays; c: (ntaps, Z, Y, X). The halo
+// u, b, s, out: (Zr, Yr, Xr) padded arrays; c: (ntaps, Z, Y, X), in the
+// state's type, or with coef_bf16 as bf16 (mode 2, sweep, only). The halo
 // widths are the largest |offset| per axis, so the interior is
 // [hz, hz+Z) x [hy, hy+Y) x [hx, hx+X) and every tap of an interior point
 // stays inside the array.
-int amg_k5_launch(int is_double, const void* u, const void* c, const void* b, const void* s,
-                  void* out, const int* dz, const int* dy, const int* dx, int ntaps, int Z,
-                  int Y, int X, int Zr, int Yr, int Xr, int mode, void* stream) {
-  if (ntaps < 1 || ntaps > kMaxVarTaps || mode < kSpmv || mode > kSweep)
+int amg_k5_launch(int is_double, int coef_bf16, const void* u, const void* c, const void* b,
+                  const void* s, void* out, const int* dz, const int* dy, const int* dx,
+                  int ntaps, int Z, int Y, int X, int Zr, int Yr, int Xr, int mode,
+                  void* stream) {
+  if (ntaps < 1 || ntaps > kMaxVarTaps || mode < kSpmv || mode > kSweep ||
+      (coef_bf16 && mode != kSweep))
     return static_cast<int>(cudaErrorInvalidValue);
   VarTaps taps{};
   taps.n = ntaps;
@@ -132,10 +161,11 @@ int amg_k5_launch(int is_double, const void* u, const void* c, const void* b, co
   }
   if (Zr < Z + 2 * hz || Yr < Y + 2 * hy || Xr < X + 2 * hx)
     return static_cast<int>(cudaErrorInvalidValue);
+  const K5Args args{u, c, b, s, out, hz, hy, hx, Z, Y, X, Yr, Xr,
+                    static_cast<long long>(Zr) * Yr * Xr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    return launch<double>(u, c, b, s, out, taps, hz, hy, hx, Z, Y, X, Zr, Yr, Xr, mode, st);
-  return launch<float>(u, c, b, s, out, taps, hz, hy, hx, Z, Y, X, Zr, Yr, Xr, mode, st);
+  if (is_double) return launch_state<double>(coef_bf16, mode, args, taps, st);
+  return launch_state<float>(coef_bf16, mode, args, taps, st);
 }
 
 }  // extern "C"

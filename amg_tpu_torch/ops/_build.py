@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {
-    "stencil": "stencil.cu", "box_march": "box_march.cu", "transfer": "transfer.cu",
+    "tap_march": "tap_march.cu", "box_march": "box_march.cu", "transfer": "transfer.cu",
     "prolong_march": "prolong_march.cu", "var_stencil": "var_stencil.cu",
 }
 _HEADERS = ("common.cuh",)

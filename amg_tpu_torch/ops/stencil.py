@@ -1,8 +1,9 @@
 """K1 and K2: the constant-weight stencil kernels on the padded state
-(counterpart of amg_tpu/ops/pallas_stencil.py). Their CUDA kernels:
-`csrc/box_march.cu` for the uniform 27-point box (K1's modes at K = 1, K2's
-at K = 2..4: one z-marching template) and `csrc/stencil.cu` for K1 on any
-other reach-1 tap list (the RAP coarse levels).
+(counterpart of amg_tpu/ops/pallas_stencil.py). Their CUDA kernels, both
+z-marches: `csrc/box_march.cu` for the uniform 27-point box (K1's modes at
+K = 1, K2's at K = 2..4: one template) and `csrc/tap_march.cu` for K1 on any
+other reach-1 tap list (the RAP coarse levels), with a route of its own for
+the 27 taps in product order (`tap_route`).
 
 K1 takes the modes of MODES; K2 the modes of SWEEPK_MODES, K = 2, 3 or 4
 fused weighted-Jacobi sweeps of the uniform 27-point box in one launch, equal
@@ -28,6 +29,7 @@ fallback.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 from typing import Tuple
 
@@ -94,15 +96,28 @@ def uniform_box_weights(taps):
     return w_off, offs[(0, 0, 0)]
 
 
-def check_state(name: str, t, like: torch.Tensor, shape) -> None:
-    """Raise unless `t` is a contiguous tensor of `like`'s dtype and device
-    with the given padded shape."""
+_PRODUCT27 = tuple(itertools.product((-1, 0, 1), repeat=3))
+
+
+def tap_route(taps) -> int:
+    """The route of a tap list in the z-marching kernels (K1's and K4's enum
+    Route): 1 the uniform box, 2 the 27 taps at (-1, 0, 1)^3 in product order
+    (the RAP levels' layout, whatever the weights), 0 any other list."""
+    if uniform_box_weights(taps) is not None:
+        return 1
+    return 2 if tuple(t[:3] for t in taps) == _PRODUCT27 else 0
+
+
+def check_state(name: str, t, like: torch.Tensor, shape, dtype=None) -> None:
+    """Raise unless `t` is a contiguous tensor of `like`'s device and dtype
+    (or `dtype` when given) with the given padded shape."""
+    dtype = like.dtype if dtype is None else dtype
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype != like.dtype or t.device != like.device:
+    if t.dtype != dtype or t.device != like.device:
         raise ValueError(
             f"{name}: dtype/device {t.dtype}/{t.device} differ from "
-            f"{like.dtype}/{like.device}"
+            f"{dtype}/{like.device}"
         )
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != padded shape {tuple(shape)}")
@@ -181,17 +196,6 @@ def sweepk_plain(u_pad, b_pad, taps, grid_shape, nsweep, alpha=0.0, scale_pad=No
     return u_pad
 
 
-_SIGNATURES = {
-    "amg_k1_num_partials": (ctypes.c_int, [ctypes.c_int] * 3),
-    "amg_k1_launch": (
-        ctypes.c_int,
-        [ctypes.c_int] + [ctypes.c_void_p] * 5
-        + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 8 + [ctypes.c_double, ctypes.c_void_p],
-    ),
-}
-
-
 # The box march's launch plan. BOX_TILE mirrors the (y, x) output tile of one
 # block in csrc/box_march.cu (kTY, kTX), which refuses a plan that does not
 # cover the padded array with it. The planes go in the fewest chunks (each
@@ -203,6 +207,42 @@ _SIGNATURES = {
 # warms up over 3(K-1) extra planes. Measured with tools/torch_box_variants.py.
 BOX_TILE = (8, 32)
 BOX_MAX_ZCHUNK = 32
+
+
+# The launch plan of the z-marching kernels on 32x8 tiles: K1's tap-list
+# route (csrc/tap_march.cu) and K4 (csrc/prolong_march.cu). ZMARCH_TILE
+# mirrors their (y, x) output tile (kTY, kTX); each kernel refuses a plan
+# that does not cover the padded array with it. The plan takes the longest
+# chunk, up to ZMARCH_MAX_ZCHUNK planes, that still gives ZMARCH_MIN_BLOCKS
+# blocks (three per SM of the H100's 132: a wave the card holds at once),
+# else chunks of one plane. Fewer, longer chunks leave the SMs short of
+# blocks, more blocks than fit run as a second wave, and each chunk warms up
+# over its halo planes. For K1's taps that is 4-plane chunks (459 blocks) at
+# 63^3 and one-plane chunks (340) at 32^3; for K4 16-plane chunks (512
+# blocks) at 126^3, 4 at 63^3 and 1 at 32^3, within 6% of the fastest chunk
+# lengths measured there with tools/torch_k4_variants.py.
+ZMARCH_TILE = (8, 32)
+ZMARCH_MAX_ZCHUNK = 16
+ZMARCH_MIN_BLOCKS = 3 * 132
+
+
+def zmarch_plan(grid_shape) -> Tuple[int, Tuple[int, int, int]]:
+    """(zchunk, (gx, gy, gz)) of a z-march over the padded array of interior
+    grid_shape: block (bx, by, bz) owns the padded columns bx*32 .. +31 (x)
+    and rows by*8 .. +7 (y) of planes bz*zchunk .. +zchunk-1."""
+    Zr, Yr, Xr = padded_shape(grid_shape)
+    gx, gy = math.ceil(Xr / ZMARCH_TILE[1]), math.ceil(Yr / ZMARCH_TILE[0])
+    zchunk = 1
+    for zc in range(ZMARCH_MAX_ZCHUNK, 1, -1):
+        if math.ceil(Zr / zc) * gx * gy >= ZMARCH_MIN_BLOCKS:
+            zchunk = zc
+            break
+    return zchunk, (gx, gy, math.ceil(Zr / zchunk))
+
+
+def k1_taps_plan(grid_shape) -> Tuple[int, Tuple[int, int, int]]:
+    """(zchunk, (gx, gy, gz)) of K1's tap-list launch for interior grid_shape."""
+    return zmarch_plan(grid_shape)
 
 
 def box_max_blocks(nsweep: int) -> int:
@@ -229,14 +269,20 @@ _BOX_SIGNATURES = {
 }
 
 
+def check_aligned(what, **tensors):
+    """Raise unless every tensor given (None: skipped) is 16-byte aligned,
+    as the z-marching kernels' 16-byte copies need."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} copies 16-byte chunks and needs a 16-byte-"
+                             f"aligned tensor (a view at an offset is not)")
+
+
 def _launch_box(u_pad, b_pad, scale_pad, box, grid_shape, alpha, mode, nsweep, plan=None):
     """The box march: K1 `mode` (nsweep 1) or K2 (nsweep 2..4, mode sweep or
     sweep_vec) on the uniform box (w_off, w_c), under box_plan's plan unless
     `plan` is given."""
-    for name, t in (("u_pad", u_pad), ("b_pad", b_pad), ("scale_pad", scale_pad)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name}: the box march copies 16-byte chunks and needs a "
-                             f"16-byte-aligned tensor (a view at an offset is not)")
+    check_aligned("the box march", u_pad=u_pad, b_pad=b_pad, scale_pad=scale_pad)
     lib = _build.load("box_march", _BOX_SIGNATURES)
     Z, Y, X = grid_shape
     zchunk, grid = box_plan(grid_shape, nsweep) if plan is None else plan
@@ -255,30 +301,44 @@ def _launch_box(u_pad, b_pad, scale_pad, box, grid_shape, alpha, mode, nsweep, p
     return out if partials is None else (out, partials)
 
 
+_TAP_SIGNATURES = {
+    "amg_k1_taps_launch": (
+        ctypes.c_int,
+        [ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.POINTER(ctypes.c_double)] + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 13 + [ctypes.c_double, ctypes.c_void_p],
+    ),
+}
+
+
+def _launch_taps(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode, plan=None):
+    """K1's tap-list z-march (csrc/tap_march.cu) on the route that tap_route
+    picks (2 or 0), under k1_taps_plan's plan unless `plan` is given."""
+    check_aligned("K1's tap-list route", u_pad=u_pad, b_pad=b_pad, scale_pad=scale_pad)
+    lib = _build.load("tap_march", _TAP_SIGNATURES)
+    Z, Y, X = grid_shape
+    zchunk, grid = k1_taps_plan(grid_shape) if plan is None else plan
+    out = torch.empty_like(u_pad)
+    partials = u_pad.new_empty(math.prod(grid)) if mode == "sweep_vec_norm" else None
+    w, dz, dy, dx, n = tap_arrays(taps)
+    _build.launch(
+        lib.amg_k1_taps_launch, "stencil kernel (K1, tap list)", u_pad.device,
+        int(u_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
+        _build.ptr(scale_pad), _build.ptr(out), _build.ptr(partials), w, dz, dy, dx, n,
+        tap_route(taps), Z, Y, X, *u_pad.shape, MODES.index(mode), *grid, zchunk, float(alpha),
+    )
+    return out if partials is None else (out, partials)
+
+
 def _launch_k1(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode):
     box = uniform_box_weights(taps)
     if box is not None:
         out = _launch_box(u_pad, b_pad, scale_pad, box, grid_shape, alpha, mode, 1)
-        stencil_kernel_padded.launches += 1
-        return out
-    lib = _build.load("stencil", _SIGNATURES)
-    Z, Y, X = grid_shape
-    Zr, Yr, Xr = u_pad.shape
-    out = torch.empty_like(u_pad)
-    partials = None
-    if mode == "sweep_vec_norm":
-        partials = torch.empty(
-            lib.amg_k1_num_partials(Zr, Yr, Xr), dtype=u_pad.dtype, device=u_pad.device
-        )
-    w, dz, dy, dx, n = tap_arrays(taps)
-    _build.launch(
-        lib.amg_k1_launch, "stencil kernel (K1)", u_pad.device,
-        int(u_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(b_pad),
-        _build.ptr(scale_pad), _build.ptr(out), _build.ptr(partials), w, dz, dy, dx, n,
-        Z, Y, X, Zr, Yr, Xr, MODES.index(mode), float(alpha),
-    )
+    else:
+        out = _launch_taps(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode)
+        stencil_kernel_padded.tap_launches += 1
     stencil_kernel_padded.launches += 1
-    return out if partials is None else (out, partials)
+    return out
 
 
 def _launch_k2(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, nsweep):
@@ -302,8 +362,9 @@ def stencil_kernel_padded(
 
     K2 (SWEEPK_MODES, `sweep<K>` with alpha, `sweep<K>_vec` with scale_pad):
     K sweeps in one launch; the taps must be the uniform 27-point box (the
-    reference kernel's contract). Launches are counted in `.launches` (K1)
-    and `.k2_launches` (K2)."""
+    reference kernel's contract). Launches are counted in `.launches` (K1,
+    both routes), `.tap_launches` (K1's tap-list route alone) and
+    `.k2_launches` (K2)."""
     if mode in SWEEPK_MODES:
         return _sweepk(u_pad, b_pad, weights, grid_shape, offsets, alpha, scale_pad, mode)
     if mode not in MODES:
@@ -344,4 +405,5 @@ def _sweepk(u_pad, b_pad, weights, grid_shape, offsets, alpha, scale_pad, mode):
 
 
 stencil_kernel_padded.launches = 0
+stencil_kernel_padded.tap_launches = 0
 stencil_kernel_padded.k2_launches = 0

@@ -20,7 +20,6 @@ serve the unfused branches of `solve.struct_cycle`.
 from __future__ import annotations
 
 import ctypes
-import itertools
 import math
 from typing import Tuple
 
@@ -28,13 +27,16 @@ import torch
 
 from amg_tpu_torch.ops import _build
 from amg_tpu_torch.ops.stencil import (
+    check_aligned,
     check_dtype_device,
     check_state,
     padded_shape,
     stencil_plain,
     tap_arrays,
+    tap_route,
     taps_of,
     uniform_box_weights,
+    zmarch_plan,
 )
 
 
@@ -180,33 +182,10 @@ def k3_bytes(grid_shape, dtype: torch.dtype, zero_guess: bool, scaled: bool) -> 
     return (reads * fine + coarse) * item
 
 
-# K4's launch plan. K4_TILE mirrors the (y, x) output tile of one block in
-# csrc/prolong_march.cu (kTY, kTX), which refuses a plan that does not cover
-# the padded fine array with it. As K3's plan: the longest chunk, up to
-# K4_MAX_ZCHUNK planes, that still gives K4_MIN_BLOCKS blocks (three per SM
-# of the H100's 132; the kernel's registers let it hold four to six), else
-# chunks of one plane. That is 16-plane chunks (512 blocks) at 126^3, 4 at
-# 63^3 and 1 at 32^3, within 6% of the fastest chunk lengths measured there
-# with tools/torch_k4_variants.py: fewer, longer chunks leave the SMs short
-# of blocks, more blocks than fit run as a second wave, and each chunk warms
-# up over two extra planes and three coarse ones.
-K4_TILE = (8, 32)
-K4_MAX_ZCHUNK = 16
-K4_MIN_BLOCKS = 3 * 132
-
-
 def k4_plan(grid_shape) -> Tuple[int, Tuple[int, int, int]]:
-    """(zchunk, (gx, gy, gz)) of K4's launch for a fine interior grid_shape:
-    block (bx, by, bz) owns the padded fine columns bx*32 .. +31 (x) and
-    by*8 .. +7 (y) of planes bz*zchunk .. +zchunk-1."""
-    Zr, Yr, Xr = padded_shape(grid_shape)
-    gx, gy = math.ceil(Xr / K4_TILE[1]), math.ceil(Yr / K4_TILE[0])
-    zchunk = 1
-    for zc in range(K4_MAX_ZCHUNK, 1, -1):
-        if math.ceil(Zr / zc) * gx * gy >= K4_MIN_BLOCKS:
-            zchunk = zc
-            break
-    return zchunk, (gx, gy, math.ceil(Zr / zchunk))
+    """(zchunk, (gx, gy, gz)) of K4's launch for a fine interior grid_shape
+    (ops/stencil.py::zmarch_plan, the plan K4 shares with K1's tap list)."""
+    return zmarch_plan(grid_shape)
 
 
 def k4_bytes(grid_shape, dtype: torch.dtype, zero_guess: bool, scaled: bool) -> int:
@@ -217,25 +196,6 @@ def k4_bytes(grid_shape, dtype: torch.dtype, zero_guess: bool, scaled: bool) -> 
     coarse = math.prod(padded_shape(coarse_shape_of(grid_shape)))
     fine_streams = (0 if zero_guess else 1) + 1 + scaled + 1
     return (fine_streams * fine + coarse) * item
-
-
-_PRODUCT27 = tuple(itertools.product((-1, 0, 1), repeat=3))
-
-
-def k4_route(taps) -> int:
-    """K4's route for a tap list (csrc/prolong_march.cu, enum Route): 1 the
-    uniform box, 2 the 27 taps at (-1, 0, 1)^3 in product order (the RAP
-    levels' layout), 0 any other list."""
-    if uniform_box_weights(taps) is not None:
-        return 1
-    return 2 if tuple(t[:3] for t in taps) == _PRODUCT27 else 0
-
-
-def _check_aligned(what, **tensors):
-    for name, t in tensors.items():
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name}: {what} copies 16-byte chunks and needs a 16-byte-"
-                             f"aligned tensor (a view at an offset is not)")
 
 
 def _check_transfer(grid_shape, offsets):
@@ -270,7 +230,7 @@ def residual_restrict_padded(
         return residual_restrict_plain(
             u_pad, b_pad, taps, grid_shape, zero_guess, scale_pad, alpha
         )
-    _check_aligned("K3", u_pad=u_pad, b_pad=b_pad, scale_pad=scale_pad)
+    check_aligned("K3", u_pad=u_pad, b_pad=b_pad, scale_pad=scale_pad)
     lib = _build.load("transfer", _SIGNATURES)
     Z, Y, X = grid_shape
     cs = coarse_shape_of(grid_shape)
@@ -293,8 +253,8 @@ residual_restrict_padded.launches = 0
 def _launch_k4(x_pad, b_pad, scale_pad, ec_pad, taps, grid_shape, alpha, zero_guess,
                plan=None):
     """K4's kernel under k4_plan's plan unless `plan` is given, on the route
-    that k4_route picks; every route sums as the plain version does."""
-    _check_aligned("K4", x_pad=x_pad, b_pad=b_pad, scale_pad=scale_pad, ec_pad=ec_pad)
+    that tap_route picks; every route sums as the plain version does."""
+    check_aligned("K4", x_pad=x_pad, b_pad=b_pad, scale_pad=scale_pad, ec_pad=ec_pad)
     lib = _build.load("prolong_march", _K4_SIGNATURES)
     Z, Y, X = grid_shape
     zchunk, grid = k4_plan(grid_shape) if plan is None else plan
@@ -306,7 +266,7 @@ def _launch_k4(x_pad, b_pad, scale_pad, ec_pad, taps, grid_shape, alpha, zero_gu
         lib.amg_k4_launch, "prolong-sweep kernel (K4)", b_pad.device,
         int(b_pad.dtype == torch.float64), _build.ptr(x_pad), _build.ptr(b_pad),
         _build.ptr(scale_pad), _build.ptr(ec_pad), _build.ptr(out), w, dz, dy, dx, n,
-        k4_route(taps), float(w_off), float(w_c - w_off), Z, Y, X, *b_pad.shape,
+        tap_route(taps), float(w_off), float(w_c - w_off), Z, Y, X, *b_pad.shape,
         *ec_pad.shape, int(zero_guess), *grid, zchunk, float(alpha),
     )
     return out

@@ -16,6 +16,11 @@ Modes, at every interior point (shell -> 0):
     residual  b - A u
     sweep     u + s (b - A u)   (streamed per-point scale)
 
+The planes are in the state's dtype; in `sweep` they may also be bfloat16
+beside a float32 or float64 state (the reference's narrow sweep stream,
+`DiaKernelOperator.with_sweep_dtype`): each coefficient is widened to the
+state's dtype, exactly, before its multiply.
+
 `var_stencil_kernel_padded` launches the CUDA kernel for a CUDA tensor and
 runs the plain PyTorch version `var_stencil_plain` for a CPU tensor; there is
 no other fallback. The reference's compensated `spmv_comp` mode exists for
@@ -78,13 +83,14 @@ def _interior(grid_shape, halos):
 
 
 def var_apply_plain(u_pad, coeffs, offsets, grid_shape, halos) -> torch.Tensor:
-    """A u on the interior, (Z, Y, X), diagonals summed in list order."""
+    """A u on the interior, (Z, Y, X), diagonals summed in list order, each
+    plane widened to u's dtype before its multiply."""
     Z, Y, X = grid_shape
     hz, hy, hx = halos
     acc = torch.zeros((Z, Y, X), dtype=u_pad.dtype, device=u_pad.device)
     for t, (dz, dy, dx) in enumerate(offsets):
         shifted = u_pad[hz + dz:hz + dz + Z, hy + dy:hy + dy + Y, hx + dx:hx + dx + X]
-        acc = acc + coeffs[t] * shifted
+        acc = acc + coeffs[t].to(u_pad.dtype) * shifted
     return acc
 
 
@@ -118,7 +124,7 @@ def offset_arrays(offsets):
 _SIGNATURES = {
     "amg_k5_launch": (
         ctypes.c_int,
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
         + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     ),
 }
@@ -130,21 +136,25 @@ def _launch_k5(u_pad, coeffs, offsets, grid_shape, b_pad, scale_pad, mode):
     Zr, Yr, Xr = u_pad.shape
     out = torch.empty_like(u_pad)
     dz, dy, dx, n = offset_arrays(offsets)
+    narrow = coeffs.dtype == torch.bfloat16
     _build.launch(
         lib.amg_k5_launch, "variable stencil kernel (K5)", u_pad.device,
-        int(u_pad.dtype == torch.float64), _build.ptr(u_pad), _build.ptr(coeffs),
+        int(u_pad.dtype == torch.float64), int(narrow), _build.ptr(u_pad), _build.ptr(coeffs),
         _build.ptr(b_pad), _build.ptr(scale_pad), _build.ptr(out), dz, dy, dx, n,
         Z, Y, X, Zr, Yr, Xr, MODES.index(mode),
     )
     var_stencil_kernel_padded.launches += 1
+    var_stencil_kernel_padded.bf16_launches += int(narrow)
     return out
 
 
 def var_stencil_kernel_padded(u_pad, coeffs, offsets, grid_shape, b_pad=None,
                               scale_pad=None, mode: str = "spmv"):
     """K5 on padded-layout vectors (see MODES). coeffs is (m, Z, Y, X), the
-    planes of the interior, in u_pad's dtype; b_pad is read by residual and
-    sweep, scale_pad by sweep."""
+    planes of the interior, in u_pad's dtype or, in `sweep` only, bfloat16;
+    b_pad is read by residual and sweep, scale_pad by sweep. Launches are
+    counted in `.launches`, those with bfloat16 planes also in
+    `.bf16_launches`."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
@@ -153,7 +163,12 @@ def var_stencil_kernel_padded(u_pad, coeffs, offsets, grid_shape, b_pad=None,
     check_dtype_device(u_pad)
     shape = var_padded_shape(grid_shape, halos_of(offsets))
     check_state("u_pad", u_pad, u_pad, shape)
-    check_state("coeffs", coeffs, u_pad, (len(offsets),) + tuple(grid_shape))
+    narrow = isinstance(coeffs, torch.Tensor) and coeffs.dtype == torch.bfloat16
+    if narrow and mode != "sweep":
+        raise ValueError(f"bfloat16 coefficient planes are read by mode 'sweep' only, "
+                         f"not {mode!r}")
+    check_state("coeffs", coeffs, u_pad, (len(offsets),) + tuple(grid_shape),
+                dtype=torch.bfloat16 if narrow else None)
     if mode != "spmv":
         check_state("b_pad", b_pad, u_pad, shape)
     else:
@@ -168,3 +183,4 @@ def var_stencil_kernel_padded(u_pad, coeffs, offsets, grid_shape, b_pad=None,
 
 
 var_stencil_kernel_padded.launches = 0
+var_stencil_kernel_padded.bf16_launches = 0

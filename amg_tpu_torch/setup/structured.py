@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import functools
 import itertools
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +117,10 @@ class DiaKernelOperator:
     offsets: Tuple[Tuple[int, ...], ...]
     grid_shape: Tuple[int, ...]
     halos: Tuple[int, ...]
+    # a narrow copy of the planes (with_sweep_dtype) that only the smoother's
+    # sweeps stream; matvec and residual, against which convergence is
+    # measured, keep the full-precision planes
+    coeffs_sweep: Optional[torch.Tensor] = None
 
     @classmethod
     def from_var_stencil(cls, vs: VarStencilOperator) -> "DiaKernelOperator":
@@ -148,11 +152,22 @@ class DiaKernelOperator:
     def _from_kernel(self, xp: torch.Tensor) -> torch.Tensor:
         return var_from_padded(xp, self.grid_shape, self.halos)
 
-    def _apply(self, u_pad, b_pad=None, scale_pad=None, mode="spmv"):
-        """One K5 application on padded operands (the single place the
-        operator reaches its kernel)."""
+    def with_sweep_dtype(self, dtype) -> "DiaKernelOperator":
+        """The operator whose fused_jacobi_sweeps streams the coefficient
+        planes at `dtype` (torch.bfloat16: half the bytes of float32). The
+        smoother is perturbed by O(2^-8) relative on each matrix entry;
+        matvec and residual stay exact. None, or the planes' own dtype,
+        drops any narrow copy (a true revert)."""
+        if dtype is None or dtype == self.coeffs.dtype:
+            return self if self.coeffs_sweep is None else replace(self, coeffs_sweep=None)
+        return replace(self, coeffs_sweep=self.coeffs.to(dtype))
+
+    def _apply(self, u_pad, b_pad=None, scale_pad=None, mode="spmv", coeffs=None):
+        """One K5 application on padded operands, of the full-precision
+        planes unless `coeffs` is given (the single place the operator
+        reaches its kernel)."""
         return var_stencil_kernel_padded(
-            u_pad, self.coeffs, self.offsets, self.grid_shape,
+            u_pad, self.coeffs if coeffs is None else coeffs, self.offsets, self.grid_shape,
             b_pad=b_pad, scale_pad=scale_pad, mode=mode,
         )
 
@@ -169,7 +184,8 @@ class DiaKernelOperator:
         one pad/unpad pair around the chain and one K5 `sweep` launch per
         sweep; the kernel re-zeroes the shell every launch, so the chained
         iterates stay in the padded layout. With zero_guess the chain starts
-        from u = 0 (u is not read)."""
+        from u = 0 (u is not read). The sweeps stream `coeffs_sweep` when it
+        is set."""
         n = self.n_rows
         bp = self._to_kernel(f)
         sp_ = self._to_kernel(
@@ -177,7 +193,7 @@ class DiaKernelOperator:
         )
         up = torch.zeros_like(bp) if zero_guess else self._to_kernel(u)
         for _ in range(int(num_sweeps)):
-            up = self._apply(up, bp, sp_, mode="sweep")
+            up = self._apply(up, bp, sp_, mode="sweep", coeffs=self.coeffs_sweep)
         return self._from_kernel(up).reshape(f.shape)
 
     def __matmul__(self, x):
@@ -600,6 +616,7 @@ def build_dia_structured_hierarchy(
     dtype=torch.float64,
     smoother=None,
     device=None,
+    sweep_coef_dtype=None,
 ):
     """Geometric hierarchy for a variable-coefficient operator on a structured
     node grid with `num_functions` interleaved dofs per node (the identity-BC
@@ -614,7 +631,9 @@ def build_dia_structured_hierarchy(
     and the V-cycle rate goes to ~1); P's rows of clamped fine dofs and
     columns of clamped coarse dofs are zeroed and the clamped coarse diagonal
     is pinned back to 1. The device hierarchy lives on `device` (None: the
-    CUDA device; raises without one)."""
+    CUDA device; raises without one). With `sweep_coef_dtype` (e.g.
+    torch.bfloat16) every level's smoother sweeps stream their coefficient
+    planes at that dtype (`DiaKernelOperator.with_sweep_dtype`)."""
     import scipy.sparse as sp
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
@@ -680,4 +699,8 @@ def build_dia_structured_hierarchy(
         lvl += 1
     coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
     hh.arrays = (levels, coarse_Ainv)
-    return hh, hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
+    hier = hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
+    if sweep_coef_dtype is not None:
+        hier = hier._replace(levels=tuple(
+            lv._replace(A=lv.A.with_sweep_dtype(sweep_coef_dtype)) for lv in hier.levels))
+    return hh, hier

@@ -10,11 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernels: K1 (all five modes), K3 and K4 (both zero_guess modes, scale
      and alpha) against their plain PyTorch versions on the card, at 126^3
      (the uniform box: K1 through the box march, `csrc/box_march.cu`) and at
-     the coarse shapes 63^3 and 32^3 with the real RAP taps (K1 through
-     `csrc/stencil.cu`), in float32 (max relative error <= 1e-5 on the
-     interior) and float64 (<= 1e-12), shells exactly 0; for the box (K1)
-     and for K4 on both routes, also whether the kernel equals its plain
-     version bit for bit (logged);
+     the coarse shapes 63^3 and 32^3 with the real RAP taps (K1 through the
+     tap-list z-march, `csrc/tap_march.cu`, on its route for the 27 taps in
+     product order, and on its route for any list with the same taps
+     reversed), in float32 (max relative error <= 1e-5 on the interior) and
+     float64 (<= 1e-12), shells exactly 0; for K1 on both of its kernels and
+     for K4, also whether the kernel equals its plain version bit for bit
+     (logged);
   4. K2 (the box march at K = 2..4): modes sweep2|3|4 and _vec at 126^3 and
      sweep3 at 190^3 (the JAX bench's headline shape), float32 and float64,
      against the plain version (the same tolerances) and bit for bit against
@@ -26,19 +28,22 @@ Phases (any failure exits non-zero and prints no result line):
      same solve in float64 to tol 1e-8 against the plain composition (a
      loop of `mult_vcycle`, no custom kernel): the same cycle count and x
      within 1e-10 relative;
-  6. the V(3,3) path (K1, K3, K4; K2 where the port routes runs of box
-     sweeps through it, `struct_cycle._k2_pays`): the same problem and
-     counters, float32 to tol 1e-4 and float64 to 1e-8, each against the
-     plain composition (the same cycle count; float64 x within 1e-10); per
-     dtype the device time per cycle of `struct_timed_cycles` with every run
-     of box sweeps through K2 and as K1 launches (bit-equal iterates) and
-     the routing the port keeps; the host clock per cycle in float32;
+  6. the V(3,3) path (K1 on both of its kernels, K3, K4; K2 where the port
+     routes runs of box sweeps through it, `struct_cycle._k2_pays`): the
+     same problem and counters (K1's tap-list launches counted apart),
+     float32 to tol 1e-4 and float64 to 1e-8, each against the plain
+     composition (the same cycle count; float64 x within 1e-10); per dtype
+     the device time per cycle of `struct_timed_cycles` with every run of
+     box sweeps through K2 and as K1 launches (bit-equal iterates) and the
+     routing the port keeps; the host clock per cycle in float32;
   7. K5: spmv, residual and sweep on the 99-diagonal elasticity operators
      of 157,035 dofs (elasticity_beam(144, 18, 18)) and 361,875 dofs
      (elasticity_beam(192, 24, 24)), float32 and float64, against the plain
      version (1e-5 / 1e-12 relative, shells exactly 0), timed beside the
      byte bound, the plain version and the cuSPARSE CSR matvec of the same
-     matrix (`torch.sparse`);
+     matrix (`torch.sparse`); the sweep also with bf16 coefficient planes
+     beside both state dtypes (bit-equality logged), timed beside its byte
+     bound and plain version;
   8. the elasticity path (K5): `build_dia_structured_hierarchy` of the 157k
      beam in float32, `mixed_pcg` (float64 state and operator, one float32
      V(2,2) L1-Jacobi cycle as preconditioner) to tol 1e-5 within 60
@@ -47,7 +52,20 @@ Phases (any failure exits non-zero and prints no result line):
      and idle share from torch.profiler; then the same solve with a float64
      preconditioner against the plain composition (K5's plain version in
      every operator): the same iterations and x within 1e-10;
-  9. timing with CUDA events: the V(1,1) per-cycle time of
+  9. the elasticity solve with the smoother's planes as bf16
+     (`build_dia_structured_hierarchy(sweep_coef_dtype=torch.bfloat16)`)
+     on the 49,179-dof beam (elasticity_beam(96, 12, 12)), the largest of
+     tools/torch_bf16_sweep_convergence.py's beams on which the JAX
+     package's own bf16 stream converges: K5's bf16-plane sweep at each
+     level's shape against its plain version (bit-equality logged); a true
+     float64 residual <= 1e-5 within 60 iterations, in the reference's
+     iteration count give or take one (32: the JAX package's own solve);
+     K5's launches and its bf16-plane sweeps counted apart, ms per
+     iteration and the device's busy time; against the plain composition
+     on the same bf16 planes: the same iterations and x within 1e-6
+     (bit-equality logged). On the 157k beam that stream does not converge
+     (ROADMAP F5), so it is not a path here;
+ 10. timing with CUDA events: the V(1,1) per-cycle time of
      `struct_timed_cycles` (slope between two cycle counts) and K1, K3, K4
      at their 126^3 shapes beside their plain versions, their DRAM byte
      bound and, for K1, the `torch.nn.functional.conv3d` yardstick; K3's
@@ -55,12 +73,14 @@ Phases (any failure exits non-zero and prints no result line):
      levels' RAP taps and smoother scale (`make_coarse_specs`), beside
      their plain versions and byte bounds (b, s and rc once each,
      `ops/transfer.py::k3_bytes`), and K4's zero-guess launches there
-     (b, s, ec and out once each, `k4_bytes`); K1's tap-list route in the sweeps of the
-     V(3,3) path's 63^3 and 32^3 levels (their RAP taps and scale) beside
-     their byte bounds; K2 in sweep2_vec and sweep3_vec at 126^3 and
+     (b, s, ec and out once each, `k4_bytes`); K1's tap-list route in the
+     sweeps of the V(3,3) path's 63^3 and 32^3 levels (their RAP taps and
+     scale), float32 and float64, beside their bounds, plain versions and
+     (float32) conv3d; K2 in sweep2_vec and sweep3_vec at 126^3 and
      sweep2_vec and sweep3 at 190^3 (the JAX bench's headline), each beside
      the chain of K1 launches that does the same sweeps.
-The last two lines are the `kernels` JSON object (K1-K5) and
+The last two lines are the `kernels` JSON object (K1 on both of its
+kernels, K2-K5, K5's bf16-plane sweep) and
 {"ok": true, "device": {...}}.
 """
 
@@ -83,6 +103,15 @@ F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
 BEAM = (144, 18, 18)  # the JAX bench's aux_dia_elasticity beam: 157,035 dofs
 BEAM_LARGE = (192, 24, 24)  # the bench's larger DIA operator: 361,875 dofs
+# the bf16 sweep planes' solve: 49,179 dofs, on which the JAX package's
+# mixed_pcg with its bf16 stream (sweep_coef_dtype=jnp.bfloat16, Pallas in
+# interpret mode on the CPU) takes BF16_REF_ITERS iterations to a true
+# residual <= 1e-5 (tools/torch_bf16_sweep_convergence.py --reference 1).
+# The port must take as many, give or take one: float32 summation order
+# moves the count by one there (the port's own CPU run takes 31), as it
+# moves the V(1,1) solve's stagnation guard
+BEAM_BF16 = (96, 12, 12)
+BF16_REF_ITERS = 32
 
 
 def log(*a):
@@ -198,8 +227,20 @@ def kernel_phase(hier64, device):
                     if not nok:
                         fails.append(f"K1 norm {gs} {dn}")
                 fails.append(compare(f"K1 {mode} {kind} {gs}", k, p, gs, dn, errs))
-                if kind == "box":
-                    log(f"  K1 {mode} box {gs} {dn}: equal to the plain version bit for bit: "
+                log(f"  K1 {mode} {kind} {gs} {dn}: equal to the plain version bit for bit: "
+                    f"{bool(torch.equal(k, p))}")
+            if kind == "rap27":
+                # K1's route for any tap list: the same taps reversed
+                rw, roff = tuple(reversed(w)), tuple(reversed(off))
+                for mode in MODES:
+                    k = stencil_kernel_padded(u, b, rw, gs, roff, alpha=alpha, scale_pad=s,
+                                              mode=mode)
+                    p = stencil_plain(u, b, taps_of(rw, roff), gs, alpha,
+                                      s if "vec" in mode else None, mode)
+                    if mode == "sweep_vec_norm":
+                        (k, _), (p, _) = k, p
+                    fails.append(compare(f"K1 {mode} list {gs}", k, p, gs, dn, errs))
+                    log(f"  K1 {mode} list {gs} {dn}: equal to the plain version bit for bit: "
                         f"{bool(torch.equal(k, p))}")
             cs = coarse_shape_of(gs)
             for zg, a in ((False, 0.0), (True, 0.0), (True, alpha)):
@@ -231,7 +272,9 @@ def reset_counts():
     for fn in (stencil_kernel_padded, residual_restrict_padded, prolong_sweep_padded,
                var_stencil_kernel_padded):
         fn.launches = 0
+    stencil_kernel_padded.tap_launches = 0
     stencil_kernel_padded.k2_launches = 0
+    var_stencil_kernel_padded.bf16_launches = 0
 
 
 def read_counts():
@@ -241,10 +284,12 @@ def read_counts():
 
     return {
         "K1": stencil_kernel_padded.launches,
+        "K1 taps": stencil_kernel_padded.tap_launches,
         "K2": stencil_kernel_padded.k2_launches,
         "K3": residual_restrict_padded.launches,
         "K4": prolong_sweep_padded.launches,
         "K5": var_stencil_kernel_padded.launches,
+        "K5 bf16": var_stencil_kernel_padded.bf16_launches,
     }
 
 
@@ -336,7 +381,12 @@ def timing_phase(hier32, device, counts, iters):
     import torch
     import torch.nn.functional as F
 
-    from amg_tpu_torch.ops.stencil import stencil_kernel_padded, stencil_plain, taps_of
+    from amg_tpu_torch.ops.stencil import (
+        k1_taps_plan,
+        stencil_kernel_padded,
+        stencil_plain,
+        taps_of,
+    )
     from amg_tpu_torch.ops.transfer import (
         coarse_shape_of,
         k3_bytes,
@@ -430,23 +480,45 @@ def timing_phase(hier32, device, counts, iters):
             f", {len(coff)} RAP taps): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms (bytes, {nbytes / 1e6:.3f} MB: b, "
             f"{'s, ' if sa is not None else ''}rc once each)")
-        # K1's tap-list route: the level's smoother sweep, as the V(3,3) path
-        # chains it
+        # K1's tap-list route (csrc/tap_march.cu): the level's smoother sweep,
+        # as the V(3,3) path chains it, in both dtypes
         mode = "sweep_vec" if sa is not None else "sweep"
-        usets = [rand_pad(rng, cgs, torch.float32, device) for _ in range(4)]
-        nbytes = (4 if sa is not None else 3) * usets[0].numel() * 4  # u, b (s) in; out
-        r = dict(
-            ms=cuda_time(lambda i: stencil_kernel_padded(
-                usets[i % 4], bsets[i % 4], cw, cgs, coff, alpha=cspec.alpha, scale_pad=sa,
-                mode=mode), 50),
-            plain_ms=cuda_time(lambda i: stencil_plain(
-                usets[i % 4], bsets[i % 4], taps_of(cw, coff), cgs, cspec.alpha, sa, mode), 10),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
-        )
-        results[f"K1 taps level {lvl}"] = r
-        log(f"K1 tap-list route level {lvl} at {cgs} float32 ({mode}, {len(coff)} RAP taps): "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"(bytes, {nbytes / 1e6:.3f} MB)")
+        ctaps = taps_of(cw, coff)
+        for dtype in (torch.float32, torch.float64):
+            dn = str(dtype).split(".")[-1]
+            usets = [(rand_pad(rng, cgs, dtype, device), rand_pad(rng, cgs, dtype, device))
+                     for _ in range(4)]
+            st = None if sa is None else sa.to(dtype)
+            item = usets[0][0].element_size()
+            # u, b (s) in; out; 2 operations a tap and 3 (2 without s) a point
+            nbytes = (4 if st is not None else 3) * usets[0][0].numel() * item
+            flops = (2 * len(coff) + 3) * int(np.prod(cgs))
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / (F32_FLOPS if dtype == torch.float32 else F64_FLOPS) * 1e3
+            r = dict(
+                ms=cuda_time(lambda i: stencil_kernel_padded(
+                    usets[i % 4][0], usets[i % 4][1], cw, cgs, coff, alpha=cspec.alpha,
+                    scale_pad=st, mode=mode), 50),
+                plain_ms=cuda_time(lambda i: stencil_plain(
+                    usets[i % 4][0], usets[i % 4][1], ctaps, cgs, cspec.alpha, st, mode), 10),
+                library_ms=None, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+            )
+            if dtype == torch.float32:
+                # conv3d of the padded u with the taps as a 3x3x3 weight: the spmv
+                # arithmetic of the same launch, in full float32
+                cbox = torch.zeros(3, 3, 3)
+                for (dz, dy, dx, wt) in ctaps:
+                    cbox[dz + 1, dy + 1, dx + 1] = wt
+                cbox = cbox.to(device)[None, None]
+                r["library_ms"] = cuda_time(
+                    lambda i: F.conv3d(usets[i % 4][0][None, None], cbox), 50)
+            results[f"K1 taps level {lvl} {dn}"] = r
+            lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            log(f"K1 tap-list route level {lvl} at {cgs} {dn} ({mode}, {len(coff)} RAP taps, "
+                f"plan {k1_taps_plan(cgs)}): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"library (conv3d, spmv only) {lib} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {nbytes / 1e6:.3f} MB)")
         # K4's zero-guess launch: the level's up-visit, u' = s*b + P ec and
         # one sweep, with a random coarse correction
         ecsets = [rand_pad(rng, coarse_shape_of(cgs), torch.float32, device) for _ in range(4)]
@@ -597,6 +669,8 @@ def v33_phase(hier32, hier64, b, device):
         k2_want = 2 * res.iters + 1 if kept == "K2" else 0
         if counts["K2"] != k2_want or counts["K1"] < res.iters + 1:
             fails.append(f"V(3,3) {dn} launches {counts}: K2 != {k2_want}")
+        if counts["K1 taps"] == 0:
+            fails.append(f"V(3,3) {dn}: K1's tap-list route was never launched")
 
         def cycles(k):
             return struct_timed_cycles(hier, cfg, bt, k, device=device)
@@ -812,7 +886,42 @@ def k5_phase(device, operators):
                     f"({r['bound_by']}, {nbytes / 1e6:.1f} MB, m={m}, padded vectors "
                     f"{tuple(u.shape)})")
                 timings[(mode, name, dn)] = r
-            del op, c, lib_A
+            # the sweep with bf16 planes (the smoother's narrow stream,
+            # DiaKernelOperator.with_sweep_dtype), widened to the state's dtype:
+            # against its plain version, and timed
+            cb = c.to(torch.bfloat16)
+            got = var_stencil_kernel_padded(u, cb, op.offsets, gs, b_pad=b, scale_pad=s,
+                                            mode="sweep")
+            want = var_stencil_plain(u, cb, op.offsets, gs, b, s, "sweep")
+            gi = var_from_padded(got, gs, h).double()
+            wi = var_from_padded(want, gs, h).double()
+            abs_err = float((gi - wi).abs().max())
+            rel = abs_err / max(float(wi.abs().max()), 1e-300)
+            ok = rel <= TOL[dn] and bool(torch.isfinite(gi).all())
+            errs.append((f"K5 bf16 sweep {name}", dn, abs_err, rel, ok))
+            log(f"  K5 sweep bf16 planes {name} {gs} {dn} rel {rel:.3e} abs {abs_err:.3e} "
+                f"bit-equal {bool(torch.equal(got, want))} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fails.append(f"K5 bf16 sweep {name} {dn}")
+            nbytes = cb.numel() * cb.element_size() + 4 * vec_bytes
+            flops = 2 * m * pts + 3 * pts
+            r = dict(
+                ms=cuda_time(lambda i: var_stencil_kernel_padded(
+                    sets[i % 3][0], cb, op.offsets, gs, b_pad=sets[i % 3][1], scale_pad=s,
+                    mode="sweep"), 20),
+                plain_ms=cuda_time(lambda i: var_stencil_plain(
+                    sets[i % 3][0], cb, op.offsets, gs, sets[i % 3][1], s, "sweep"), 3),
+                library_ms=None, bytes=nbytes, flops=flops)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+            r["bound_ms"] = max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"K5 sweep bf16 planes {name} {gs} {dn}: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library null (no PyTorch call computes this "
+                f"mixed-dtype sweep), bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{nbytes / 1e6:.1f} MB); the same sweep on {dn} planes "
+                f"{timings[('sweep', name, dn)]['ms']:.4f} ms")
+            timings[("sweep bf16", name, dn)] = r
+            del op, c, cb, lib_A
     torch.cuda.synchronize()
     return errs, fails, timings
 
@@ -849,9 +958,9 @@ def plain_dia_hierarchy(hier):
     from amg_tpu_torch.setup.structured import DiaKernelOperator
 
     class PlainDia(DiaKernelOperator):
-        def _apply(self, u_pad, b_pad=None, scale_pad=None, mode="spmv"):
-            return var_stencil_plain(u_pad, self.coeffs, self.offsets, self.grid_shape,
-                                     b_pad, scale_pad, mode)
+        def _apply(self, u_pad, b_pad=None, scale_pad=None, mode="spmv", coeffs=None):
+            return var_stencil_plain(u_pad, self.coeffs if coeffs is None else coeffs,
+                                     self.offsets, self.grid_shape, b_pad, scale_pad, mode)
 
     def plain(op):
         return PlainDia(**{f.name: getattr(op, f.name) for f in dataclasses.fields(op)})
@@ -936,6 +1045,119 @@ def elasticity_phase(device, prob, vs):
             "setup_s": setup_s, "solve_s": solve_s, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms or None, "idle_share": idle, "counts": counts,
             "iters64": r64.iters, "plain_iters64": rp.iters, "dx64": dx}, fails
+
+
+def elasticity_bf16_phase(device, errs):
+    """The elasticity solve of BEAM_BF16 with the smoother's coefficient
+    planes streamed as bf16 (`build_dia_structured_hierarchy(sweep_coef_dtype=
+    torch.bfloat16)`), float32 preconditioner: its float64 CSR residual and
+    iterations against the reference's, and against the plain composition
+    (K5's plain version in every operator, the same bf16 planes). First K5's
+    bf16-plane sweep at each level's shape against its plain version
+    (appended to `errs`)."""
+    import torch
+
+    from amg_tpu_torch.ops.var_stencil import (
+        var_from_padded,
+        var_stencil_kernel_padded,
+        var_stencil_plain,
+    )
+
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.structured import (
+        build_dia_structured_hierarchy,
+        csr_to_dia_stencil,
+    )
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
+    from amg_tpu_torch.solve.mixed import mixed_pcg
+
+    prob = elasticity_beam(*BEAM_BF16, bc="identity")
+    vs = csr_to_dia_stencil(prob.A, prob.grid_shape)
+    nodes = tuple(c + 1 for c in BEAM_BF16)
+    t0 = time.perf_counter()
+    _, hier = build_dia_structured_hierarchy(prob.A, nodes, num_functions=3, dtype=torch.float32,
+                                             device=device, sweep_coef_dtype=torch.bfloat16)
+    A64 = dia_operator(vs, torch.float64, device)
+    torch.cuda.synchronize()
+    log(f"elasticity {BEAM_BF16} ({prob.n} dofs), bf16 sweep planes: setup "
+        f"{time.perf_counter() - t0:.2f} s; planes {[str(lv.A.coeffs_sweep.dtype) for lv in hier.levels]}")
+    fails = []
+    rng = np.random.default_rng(SEED + 6)
+    for k, lv in enumerate(hier.levels):
+        op, gs = lv.A, lv.A.grid_shape
+        u, b_, s_ = (op._to_kernel(torch.from_numpy(rng.random(op.n_rows)).to(device,
+                                                                               torch.float32))
+                     for _ in range(3))
+        got = var_stencil_kernel_padded(u, op.coeffs_sweep, op.offsets, gs, b_pad=b_,
+                                        scale_pad=s_, mode="sweep")
+        want = var_stencil_plain(u, op.coeffs_sweep, op.offsets, gs, b_, s_, "sweep")
+        gi = var_from_padded(got, gs, op.halos).double()
+        wi = var_from_padded(want, gs, op.halos).double()
+        abs_err = float((gi - wi).abs().max())
+        rel = abs_err / max(float(wi.abs().max()), 1e-300)
+        ok = rel <= TOL["float32"] and bool(torch.isfinite(gi).all())
+        errs.append((f"K5 bf16 sweep level {k}", "float32", abs_err, rel, ok))
+        log(f"  K5 sweep bf16 planes level {k} {gs} float32 rel {rel:.3e} abs {abs_err:.3e} "
+            f"bit-equal {bool(torch.equal(got, want))} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"K5 bf16 sweep level {k}")
+    cfg = CycleConfig(cycle=CycleType.MULT, smoother=SmootherType.L1_JACOBI,
+                      num_pre_sweeps=2, num_post_sweeps=2)
+    b = prob.rhs / np.linalg.norm(prob.rhs)
+
+    def solve(h, A):
+        return mixed_pcg(h, A, cfg, b, tol=1e-5, max_cycles=60, device=device)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(hier, A64)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    x = res.x.cpu().numpy()
+    true_rel = float(np.linalg.norm(b - prob.A @ x) / np.linalg.norm(b))
+    it = res.iters
+    log(f"mixed_pcg float32 V(2,2), bf16 sweep planes: iterations {it}, rel_res "
+        f"{res.rel_resnorm:.4e}, true rel_res (float64 CSR) {true_rel:.4e}, solve {solve_s:.3f} s; "
+        f"launches {counts}: K5 {counts['K5']}, of which sweeps on bf16 planes "
+        f"{counts['K5 bf16']}")
+    log("  history", [float(f"{v:.4e}") for v in res.history_list()])
+    if not (true_rel <= 1e-5 and it <= 60 and np.isfinite(x).all()):
+        fails.append("bf16 elasticity mixed_pcg: true residual > 1e-5 or > 60 iterations")
+    if abs(it - BF16_REF_ITERS) > 1:
+        fails.append(f"bf16 elasticity mixed_pcg: {it} iterations, the reference's "
+                     f"{BF16_REF_ITERS}")
+    if counts["K5 bf16"] == 0:
+        fails.append("bf16 elasticity path launched no K5 sweep on bf16 planes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = solve(hier, A64)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, events, rows = profile_device_ms(lambda: solve(hier, A64))
+    idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
+    log(f"bf16 elasticity solve again: {res2.iters} iterations, {wall_ms:.3f} ms "
+        f"({wall_ms / max(res2.iters, 1):.3f} ms/iteration); device busy (torch.profiler, one "
+        f"solve) {busy_ms:.3f} ms in {events} kernel and copy events; idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    for ms, n, name in rows[:6]:
+        log(f"  {ms:.4f} ms  {n:6d} launches  {name[:100]}")
+    plain_hier, plain = plain_dia_hierarchy(hier)
+    rp = solve(plain_hier, plain(A64))
+    dx = float(torch.linalg.norm(res.x - rp.x) / torch.linalg.norm(rp.x))
+    exact = bool(torch.equal(res.x, rp.x))
+    log(f"bf16 elasticity against the plain composition: iterations {it} (plain {rp.iters}), "
+        f"|x - x_plain|/|x_plain| {dx:.3e}, bit-equal {exact}")
+    if rp.iters != it or dx > 1e-6:
+        fails.append("bf16 elasticity solve against the plain composition")
+    return {"beam": BEAM_BF16, "n": prob.n, "iters": it, "ref_iters": BF16_REF_ITERS,
+            "true_rel_res": true_rel,
+            "solve_s": solve_s, "wall_ms": wall_ms,
+            "ms_per_iter": wall_ms / max(res2.iters, 1), "device_busy_ms": busy_ms or None,
+            "idle_share": idle, "counts": counts, "plain_iters": rp.iters, "dx": dx,
+            "bit_equal": exact}, fails
 
 
 def main() -> int:
@@ -1051,30 +1273,56 @@ def main() -> int:
     if fel:
         log("elasticity path FAILED:", fel)
         return 1
+    log("elasticity path, bf16 sweep planes:")
+    el16, fel16 = elasticity_bf16_phase(device, errs)
+    if fel16:
+        log("bf16 elasticity path FAILED:", fel16)
+        return 1
 
     cycle = cycle_phase(hier32, cfg, b32, device)
     timings = timing_phase(hier32, device, counts, res.iters)
     t2 = k2_timing(device)
     timings["K2"] = t2[f"sweep2_vec {N_SIDE}"]
     timings["K5"] = t5[("spmv", "157k", "float64")]
-    # K2's launches: those of the V(3,3) solves; 0 where the port routes
-    # their box sweeps as K1 launches (on the card, where that is faster)
+    timings["K1 taps"] = timings["K1 taps level 1 float32"]
+    timings["K5 bf16 sweep"] = t5[("sweep bf16", "157k", "float32")]
+    # each path's counts: K1 (the box march), K3 and K4 of the V(1,1) solve;
+    # K1's tap-list route and K2 of the V(3,3) float32 solve (K2: 0 where the
+    # port routes its box sweeps as K1 launches, on the card, where that is
+    # faster); K5 of the elasticity solve, and its bf16-plane sweeps of the
+    # bf16 solve (BEAM_BF16)
     launches = dict(counts, K2=max(r["counts"]["K2"] for r in v33.values()),
                     K5=el["counts"]["K5"])
+    launches["K1 taps"] = v33["float32"]["counts"]["K1 taps"]
+    launches["K5 bf16 sweep"] = el16["counts"]["K5 bf16"]
 
     sources = {
         "K1": ("amg_tpu_torch/csrc/box_march.cu", "amg_tpu/ops/pallas_stencil.py:269"),
+        "K1 taps": ("amg_tpu_torch/csrc/tap_march.cu", "amg_tpu/ops/pallas_stencil.py:269"),
         "K2": ("amg_tpu_torch/csrc/box_march.cu", "amg_tpu/ops/pallas_stencil.py:82"),
         "K3": ("amg_tpu_torch/csrc/transfer.cu", "amg_tpu/ops/pallas_transfer.py:181"),
         "K4": ("amg_tpu_torch/csrc/prolong_march.cu", "amg_tpu/ops/pallas_transfer.py:404"),
         "K5": ("amg_tpu_torch/csrc/var_stencil.cu", "amg_tpu/ops/pallas_var_stencil.py:98"),
+        "K5 bf16 sweep": ("amg_tpu_torch/csrc/var_stencil.cu",
+                          "amg_tpu/ops/pallas_var_stencil.py:98"),
+    }
+    # the errors each entry carries: K1 on the box, K1 on tap lists (the RAP
+    # taps and their reversal), K5 on its own planes, K5's sweep on bf16 planes
+    picks = {
+        "K1": lambda n: n.startswith("K1 ") and " box " in n,
+        "K1 taps": lambda n: n.startswith("K1 ") and " box " not in n,
+        "K5": lambda n: n.startswith("K5 ") and "bf16" not in n,
+        "K5 bf16 sweep": lambda n: n.startswith("K5 bf16"),
     }
     # what each entry's time is of: K1 sweep_vec_norm (the box march), K3 and
-    # K4 at 126^3 float32 (the V(1,1) path); K2 sweep2_vec at 126^3 float32 (the V(3,3)
-    # path); K5 spmv at 157k float64 (the PCG matvec of the elasticity path)
+    # K4 at 126^3 float32 (the V(1,1) path); K1's tap-list route sweep_vec at
+    # 63^3 float32 (the V(3,3) path's RAP level); K2 sweep2_vec at 126^3
+    # float32 (the V(3,3) path); K5 spmv at 157k float64 (the PCG matvec of the
+    # elasticity path) and its bf16-plane sweep at 157k, float32 state
     kernels = []
     for name, (src, rep) in sources.items():
-        mine = [e for e in errs if e[0].startswith(name) and e[1] == "float32"]
+        pick = picks.get(name, lambda n, name=name: n.startswith(name + " "))
+        mine = [e for e in errs if pick(e[0]) and e[1] == "float32"]
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1087,6 +1335,7 @@ def main() -> int:
                     **cycle}))
     log(json.dumps({"v33": v33}))
     log(json.dumps({"elasticity": el}))
+    log(json.dumps({"elasticity_bf16": el16}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

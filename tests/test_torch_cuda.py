@@ -3,19 +3,24 @@ versions, on the card, at ragged shapes that the main paths do not give them
 (odd sides, X not a multiple of any block width or tile), with each launch
 counted. K2 is also held bit for bit against K chained K1 launches. K1 on
 the uniform 27-point box and K2 run through the box march
-(`csrc/box_march.cu`), K1 on other taps through `csrc/stencil.cu`; the box
-march is also run at the edges of its launch plan (chunks of one plane,
-chunks that do not divide the planes, one chunk longer than the array), and
-so is K4 (`csrc/prolong_march.cu`), which is held bit for bit against its
-plain version on both routes (the uniform box and a tap list).
+(`csrc/box_march.cu`), K1 on other taps through the tap-list z-march
+(`csrc/tap_march.cu`: the 27 taps in product order, and any other list);
+both marches are also run at the edges of their launch plans (chunks of one
+plane, chunks that do not divide the planes, one chunk longer than the
+array), and so is K4 (`csrc/prolong_march.cu`). K5 also takes bf16
+coefficient planes in its sweep.
 
 Marked `cuda`; without a card every test skips. On a machine with one:
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda   # -k k1, -k k2, -k box, -k k4
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+    # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5
 
 Tolerances: float64 to 1e-12 and float32 to 1e-5, relative to the largest
-interior value (the kernels fuse multiply-adds and sum in their own order);
-the zero shell exactly.
+interior value, the zero shell exactly; where the kernel rounds every
+operation on its own in its plain version's order (K1 on both routes, K2
+against the K1 chain, K4, K5), it is also held equal bit for bit
+(`torch.equal`). The sweep_vec_norm partials (one per block, summed in the
+kernel's own order) are held to the tolerance.
 """
 
 import numpy as np
@@ -72,24 +77,118 @@ def _check(got, want, gs, dtype):
     assert torch.count_nonzero(shell) == 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
-@pytest.mark.parametrize("gs", SHAPES, ids=str)
-def test_k1_matches_plain(device, gs, dtype):
-    rng = np.random.default_rng(0)
-    w, offs = _taps(1)
+def _seven(seed):
+    """A 7-point stencil with distinct weights: K1's route for any tap list."""
+    offs = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    w = -np.random.default_rng(seed).random(7)
+    w[0] = 8.0
+    return tuple(float(x) for x in w), offs
+
+
+TAP_LISTS = {"dense27": lambda: _taps(1), "list": lambda: _reversed(*_taps(1)),
+             "seven": lambda: _seven(1)}
+
+
+def _k1_taps_modes(u, b, s, w, offs, gs, plan=None):
+    """K1's tap-list route in all five modes against stencil_plain: bit for
+    bit, the norm's partials (one per block of the plan) to the tolerance."""
     taps = ts.taps_of(w, offs)
-    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
-    s = 0.02 * _pad(rng, gs, dtype, device)
+    dtype = u.dtype
     for mode in ts.MODES:
-        before = ts.stencil_kernel_padded.launches
-        got = ts.stencil_kernel_padded(u, b, w, gs, offs, alpha=0.03, scale_pad=s, mode=mode)
-        assert ts.stencil_kernel_padded.launches == before + 1
+        if plan is None:
+            before = (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.tap_launches)
+            got = ts.stencil_kernel_padded(u, b, w, gs, offs, alpha=0.03, scale_pad=s, mode=mode)
+            assert (ts.stencil_kernel_padded.launches,
+                    ts.stencil_kernel_padded.tap_launches) == (before[0] + 1, before[1] + 1)
+        else:
+            got = ts._launch_taps(u, None if mode == "spmv" else b,
+                                  s if "vec" in mode else None, taps, gs, 0.03, mode, plan)
         want = ts.stencil_plain(u, b, taps, gs, 0.03, s if "vec" in mode else None, mode)
         if mode == "sweep_vec_norm":
             (got, gn), (want, wn) = got, want
+            assert gn.numel() == np.prod((plan or ts.k1_taps_plan(gs))[1])
             assert abs(float(gn.double().sum()) - float(wn.double().sum())) <= (
                 TOL[dtype] * float(wn.double().sum()))
         _check(got, want, gs, dtype)
+        assert torch.equal(got, want), mode
+
+
+@pytest.mark.parametrize("route", list(TAP_LISTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs", SHAPES, ids=str)
+def test_k1_matches_plain(device, gs, dtype, route):
+    """K1's tap-list route (csrc/tap_march.cu) on 27 taps in product order,
+    the same taps reversed and a 7-point list: all five modes bit for bit."""
+    rng = np.random.default_rng(0)
+    w, offs = TAP_LISTS[route]()
+    assert ts.tap_route(ts.taps_of(w, offs)) == (2 if route == "dense27" else 0)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.02 * _pad(rng, gs, dtype, device)
+    _k1_taps_modes(u, b, s, w, offs, gs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("zchunk", [1, 2, 3, 5, 19, 24])
+def test_k1_taps_at_plan_edges(device, zchunk, dtype):
+    """K1's tap-list route under explicit plans on 17 x 18 x 16 (19 padded
+    planes, odd sides): chunks of one plane, chunks that end on a half step,
+    chunks that do not divide the planes, one as long as the array and one
+    longer; both routes."""
+    gs = (17, 18, 16)
+    Zr, Yr, Xr = ts.padded_shape(gs)
+    plan = (zchunk, (-(-Xr // ts.ZMARCH_TILE[1]), -(-Yr // ts.ZMARCH_TILE[0]), -(-Zr // zchunk)))
+    rng = np.random.default_rng(10)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.02 * _pad(rng, gs, dtype, device)
+    for route in TAP_LISTS:
+        _k1_taps_modes(u, b, s, *TAP_LISTS[route](), gs, plan)
+
+
+@pytest.fixture(scope="module")
+def rap_taps():
+    """(weights, offsets) of the 27-point Laplacian's RAP coarse stencil (its
+    hierarchy's level 1, in product order): the taps of the V(3,3) path's
+    63^3 and 32^3 levels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.structured import build_structured_hierarchy
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.struct_cycle import make_coarse_specs
+
+    _, hier = build_structured_hierarchy(laplacian_3d_27pt(64).stencil, coarse_op="const",
+                                         smoother=SmootherType.L1_JACOBI, device="cuda")
+    spec = make_coarse_specs(hier)[1]
+    return spec.weights, spec.offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs", [(63, 63, 63), (32, 32, 32)], ids=str)
+def test_k1_taps_at_the_rap_levels(device, rap_taps, gs, dtype):
+    """The V(3,3) path's coarse shapes under k1_taps_plan with the RAP taps
+    (the product-order route) and the same taps reversed."""
+    w, offs = rap_taps
+    assert ts.tap_route(ts.taps_of(w, offs)) == 2
+    rng = np.random.default_rng(11)
+    u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
+    s = 0.02 * _pad(rng, gs, dtype, device)
+    for ww, oo in ((w, offs), _reversed(w, offs)):
+        _k1_taps_modes(u, b, s, ww, oo, gs)
+
+
+def test_k1_taps_refuse_a_misaligned_view(device):
+    """K1's tap-list route copies u, b and s in 16-byte chunks: a view at an
+    offset that breaks the alignment raises, and nothing is launched."""
+    gs = (8, 8, 8)
+    w, offs = _taps(1)
+    shape = ts.padded_shape(gs)
+    bad = torch.zeros(int(np.prod(shape)) + 1, device=device)[1:].view(shape)
+    good = torch.zeros(shape, device=device)
+    before = ts.stencil_kernel_padded.launches
+    for u, b, s in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ts.stencil_kernel_padded(u, b, w, gs, offs, scale_pad=s, mode="sweep_vec")
+    assert ts.stencil_kernel_padded.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
@@ -227,7 +326,7 @@ def test_k4_equals_plain_bit_for_bit(device, gs, dtype, route):
     rng = np.random.default_rng(8)
     w, offs = {"box": _box, "dense27": lambda: _taps(5),
                "list": lambda: _reversed(*_taps(5))}[route]()
-    assert tt.k4_route(ts.taps_of(w, offs)) == {"list": 0, "box": 1, "dense27": 2}[route]
+    assert ts.tap_route(ts.taps_of(w, offs)) == {"list": 0, "box": 1, "dense27": 2}[route]
     u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
     s = 0.02 * _pad(rng, gs, dtype, device)
     ec = _pad(rng, tt.coarse_shape_of(gs), dtype, device)
@@ -244,7 +343,7 @@ def test_k4_at_plan_edges(device, zchunk, dtype):
     planes, one chunk as long as the array and one longer."""
     gs = (17, 18, 16)
     Zr, Yr, Xr = ts.padded_shape(gs)
-    plan = (zchunk, (-(-Xr // tt.K4_TILE[1]), -(-Yr // tt.K4_TILE[0]), -(-Zr // zchunk)))
+    plan = (zchunk, (-(-Xr // ts.ZMARCH_TILE[1]), -(-Yr // ts.ZMARCH_TILE[0]), -(-Zr // zchunk)))
     rng = np.random.default_rng(9)
     u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
     s = 0.02 * _pad(rng, gs, dtype, device)
@@ -372,3 +471,33 @@ def test_k5_matches_plain(device, gs, offsets, dtype):
         shell = got.clone()
         shell[h[0]:h[0] + gs[0], h[1]:h[1] + gs[1], h[2]:h[2] + gs[2]] = 0
         assert torch.count_nonzero(shell) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("gs,offsets", [
+    ((7, 5, 13), ((0, 0, 0), (-1, 0, 2), (1, 1, -3), (0, -1, 1), (2, 0, 0))),
+    ((4, 9, 30), tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                       for dx in range(-5, 6))),
+], ids=["5diag", "99diag"])
+def test_k5_bf16_sweep_equals_plain(device, gs, offsets, dtype):
+    """K5's sweep with bf16 coefficient planes beside a float32 or float64
+    state: bit for bit its plain version (the planes widened exactly)."""
+    rng = np.random.default_rng(12)
+    h = tvs.halos_of(offsets)
+    n = int(np.prod(gs))
+
+    def pad(v):
+        return tvs.var_to_padded(torch.from_numpy(v).to(device=device, dtype=dtype), gs, h)
+
+    c = torch.from_numpy(rng.standard_normal((len(offsets),) + gs)).to(device=device,
+                                                                       dtype=torch.bfloat16)
+    u, b, s = pad(rng.random(n)), pad(rng.random(n)), pad(0.1 * rng.random(n))
+    before = (tvs.var_stencil_kernel_padded.launches, tvs.var_stencil_kernel_padded.bf16_launches)
+    got = tvs.var_stencil_kernel_padded(u, c, offsets, gs, b_pad=b, scale_pad=s, mode="sweep")
+    assert (tvs.var_stencil_kernel_padded.launches,
+            tvs.var_stencil_kernel_padded.bf16_launches) == (before[0] + 1, before[1] + 1)
+    want = tvs.var_stencil_plain(u, c, offsets, gs, b, s, "sweep")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tvs.var_stencil_kernel_padded(u, c, offsets, gs, b_pad=b, mode="residual")

@@ -1,11 +1,14 @@
 """The DIA (elasticity) path of the PyTorch port against the JAX package:
 the elasticity generator, the DIA form, kernel K5's plain version, the DIA
-structured hierarchy and one cycle on it.
+structured hierarchy and one cycle on it, and the smoother's bfloat16
+coefficient stream (`with_sweep_dtype`, `sweep_coef_dtype`).
 
 Tolerances: the generator and the DIA form exactly (the same float64
-host arithmetic); K5 and the cycles to atol 1e-12 relative to the largest
-value (99 products per row summed in a different order); the hierarchy's
-coefficients, smoother scales and coarse inverse to 1e-12.
+host arithmetic); K5, the bf16-plane sweeps (the same bf16 planes: both
+frameworks round float64 to bfloat16 alike) and the cycles to atol 1e-12
+relative to the largest value (99 products per row summed in a different
+order); the hierarchy's coefficients, smoother scales and coarse inverse to
+1e-12.
 """
 
 import numpy as np
@@ -197,3 +200,103 @@ def test_cycle_step_names_the_slice_of_the_other_cycles():
     b = torch.ones(th.levels[0].A.n_rows, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="generic-AMG slice"):
         cycle_step(th, CycleConfig(cycle=CycleType.MULTADD), torch.zeros_like(b), b)
+
+
+def _sweep_ops():
+    """The port's and the reference's float64 DIA operator of the small beam of
+    the reference's own bf16-stream test (tests/test_dia.py::
+    TestDiaFusedSmoother._ops), inputs drawn with numpy."""
+    prob = elasticity_beam(nx=6, ny=3, nz=3, bc="identity")
+    op = tst.DiaKernelOperator.from_var_stencil(tst.csr_to_dia_stencil(prob.A, prob.grid_shape))
+    jop = jst.DiaKernelOperator.from_var_stencil(
+        jst.csr_to_dia_stencil(jax_beam(nx=6, ny=3, nz=3, bc="identity").A, prob.grid_shape,
+                               jnp.float64))
+    rng = np.random.default_rng(3)
+    u, f = rng.random(prob.n), rng.random(prob.n)
+    s = 1.0 / np.abs(prob.A.to_scipy()).sum(axis=1).A1
+    return op, jop, u, f, s
+
+
+@pytest.mark.parametrize("zero_guess", [False, True])
+def test_bf16_sweep_planes_match_reference(zero_guess):
+    """with_sweep_dtype(bfloat16): the fused sweeps stream the bf16 planes,
+    widened to the float64 state, as the reference's do."""
+    op, jop, u, f, s = _sweep_ops()
+    opb, jopb = op.with_sweep_dtype(torch.bfloat16), jop.with_sweep_dtype(jnp.bfloat16)
+    assert opb.coeffs_sweep.dtype == torch.bfloat16 and opb.coeffs.dtype == torch.float64
+    assert torch.equal(opb.coeffs_sweep, op.coeffs.to(torch.bfloat16))
+    with pltpu.force_tpu_interpret_mode():
+        want = jopb.fused_jacobi_sweeps(jnp.asarray(u), jnp.asarray(f), jnp.asarray(s), 2,
+                                        zero_guess=zero_guess)
+    t = (torch.from_numpy(v) for v in (u, f, s))
+    got = opb.fused_jacobi_sweeps(*t, 2, zero_guess=zero_guess)
+    _close(got, want)
+    full = op.fused_jacobi_sweeps(*(torch.from_numpy(v) for v in (u, f, s)), 2,
+                                  zero_guess=zero_guess)
+    rel = float(torch.linalg.norm(got - full) / torch.linalg.norm(full))
+    assert 0.0 < rel < 1e-2  # the planes' bf16 rounding, not garbage
+
+
+def test_bf16_copy_leaves_matvec_and_residual_and_reverts():
+    op, _, u, f, _ = _sweep_ops()
+    opb = op.with_sweep_dtype(torch.bfloat16)
+    u, f = torch.from_numpy(u), torch.from_numpy(f)
+    assert torch.equal(opb.matvec(u), op.matvec(u))
+    assert torch.equal(opb.residual(u, f), op.residual(u, f))
+    # None or the planes' own dtype drops the narrow copy: a true revert
+    for dtype in (None, torch.float64):
+        back = opb.with_sweep_dtype(dtype)
+        assert back.coeffs_sweep is None and back.coeffs is op.coeffs
+    assert op.with_sweep_dtype(None) is op
+
+
+def test_dia_hierarchy_sweep_coef_dtype_matches_reference():
+    """build_dia_structured_hierarchy(sweep_coef_dtype=bfloat16) gives every
+    level the narrow copy, and one V(1,1) cycle on it equals the reference's
+    hierarchy built the same way (its kernel operators in interpret mode)."""
+    prob = elasticity_beam(**BEAM)
+    _, th = tst.build_dia_structured_hierarchy(prob.A, NODES, num_functions=3, device="cpu",
+                                               sweep_coef_dtype=torch.bfloat16)
+    for lv in th.levels:
+        assert lv.A.coeffs_sweep.dtype == torch.bfloat16
+        assert torch.equal(lv.A.coeffs_sweep, lv.A.coeffs.to(torch.bfloat16))
+    _, plain = tst.build_dia_structured_hierarchy(prob.A, NODES, num_functions=3, device="cpu")
+    assert all(lv.A.coeffs_sweep is None for lv in plain.levels)
+    _, jh = jst.build_dia_structured_hierarchy(jax_beam(**BEAM).A, NODES, num_functions=3,
+                                               use_kernel=True, sweep_coef_dtype=jnp.bfloat16)
+    assert all(lv.A.c_sweep is not None for lv in jh.levels)
+    rng = np.random.default_rng(4)
+    x, b = rng.random(prob.n), rng.random(prob.n)
+    jcfg = JaxCycleConfig(cycle=JaxCycleType.MULT, smoother=JaxSmoother.L1_JACOBI)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_mult_vcycle(jh, jcfg, jnp.asarray(x), jnp.asarray(b))
+    got = mult_vcycle(th, CycleConfig(), torch.from_numpy(x), torch.from_numpy(b))
+    _close(got, want)
+    full = mult_vcycle(plain, CycleConfig(), torch.from_numpy(x), torch.from_numpy(b))
+    assert not torch.equal(got, full)
+
+
+@pytest.mark.parametrize("mode", tvs.MODES)
+def test_k5_takes_bf16_planes_in_sweep_only(mode):
+    prob, vs, gs, x, b, scale = _k5_inputs(seed=5)
+    h = tvs.halos_of(vs.offsets)
+
+    def pad(v):
+        return tvs.var_to_padded(torch.from_numpy(v), gs, h)
+
+    cb = vs.coeffs.to(torch.bfloat16)
+    call = tvs.var_stencil_kernel_padded
+    if mode != "sweep":
+        with pytest.raises(ValueError, match="bfloat16 coefficient planes"):
+            call(pad(x), cb, vs.offsets, gs, b_pad=pad(b), mode=mode)
+        return
+    with pytest.raises(ValueError, match="dtype"):
+        call(pad(x), vs.coeffs.half(), vs.offsets, gs, b_pad=pad(b), scale_pad=pad(scale),
+             mode=mode)
+    for dtype in (torch.float32, torch.float64):
+        up, bp, sp_ = (pad(v).to(dtype) for v in (x, b, scale))
+        got = call(up, cb, vs.offsets, gs, b_pad=bp, scale_pad=sp_, mode=mode)
+        assert got.dtype == dtype
+        # the plain version widens the planes before the multiply
+        want = tvs.var_stencil_plain(up, cb.to(dtype), vs.offsets, gs, bp, sp_, mode)
+        assert torch.equal(got, want)

@@ -236,3 +236,65 @@ def test_box_plan_pins_the_main_path_shapes():
     assert ts.box_plan((126, 126, 126)) == (8, (4, 16, 16))  # K1: 1024 blocks
     assert ts.box_plan((126, 126, 126), 2) == (16, (4, 16, 8))  # 512 blocks
     assert ts.box_plan((190, 190, 190), 3) == (32, (6, 24, 6))  # 864 blocks
+
+
+_PRODUCT = tuple((dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+_BOX27 = tuple(o + (26.0 if o == (0, 0, 0) else -1.0,) for o in _PRODUCT)
+_RAP27 = tuple(o + (-0.1 * (k + 1),) for k, o in enumerate(_PRODUCT))
+_SEVEN = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+
+
+@pytest.mark.parametrize("name,taps,want", [
+    ("box", _BOX27, 1),
+    ("box-reversed", _BOX27[::-1], 1),
+    ("rap27", _RAP27, 2),
+    ("rap27-reversed", _RAP27[::-1], 0),
+    ("7pt", tuple(o + (6.0 if o == (0, 0, 0) else -1.0,) for o in _SEVEN), 0),
+    ("rap26", _RAP27[:26], 0),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_tap_route(name, taps, want):
+    """The route K1's and K4's z-marches take: 1 the uniform box (in any
+    order), 2 27 taps at (-1, 0, 1)^3 in product order whatever the weights,
+    0 any other list (reversed, partial, the 7-point stencil)."""
+    assert ts.tap_route(taps) == want
+
+
+def _plan_cover(gs, plan, tile):
+    zchunk, (gx, gy, gz) = plan
+    ty, tx = tile
+    cover = np.zeros((gz * zchunk, gy * ty, gx * tx), dtype=int)
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                cover[bz * zchunk:(bz + 1) * zchunk, by * ty:(by + 1) * ty,
+                      bx * tx:(bx + 1) * tx] += 1
+    return cover
+
+
+# K1's tap-list plan at its edges: sides under one 32x8 tile; an odd Z;
+# chunks that do not divide the 62 padded planes of (60, 96, 128); the V(3,3)
+# path's RAP levels 63^3 and 32^3
+@pytest.mark.parametrize("gs", [(3, 4, 5), (17, 18, 16), (33, 9, 70), (60, 96, 128),
+                                (63, 63, 63), (32, 32, 32)], ids=str)
+def test_k1_taps_plan_covers_every_point_once(gs):
+    """Every padded point lies in exactly one block's (x, y) tile and
+    z-chunk, no block lies wholly outside the array, and the grid has
+    >= 3 x 132 blocks wherever one-plane chunks allow it."""
+    zchunk, (gx, gy, gz) = ts.k1_taps_plan(gs)
+    Zr, Yr, Xr = ts.padded_shape(gs)
+    ty, tx = ts.ZMARCH_TILE
+    assert 1 <= zchunk <= ts.ZMARCH_MAX_ZCHUNK
+    cover = _plan_cover(gs, (zchunk, (gx, gy, gz)), ts.ZMARCH_TILE)
+    assert (cover[:Zr, :Yr, :Xr] == 1).all()
+    assert (gx - 1) * tx < Xr and (gy - 1) * ty < Yr and (gz - 1) * zchunk < Zr
+    assert gx * gy * gz >= min(ts.ZMARCH_MIN_BLOCKS, Zr * gx * gy)
+    if gs == (60, 96, 128):
+        assert zchunk > 1 and gz * zchunk != Zr
+
+
+def test_k1_taps_plan_at_the_rap_levels():
+    # 63^3 (padded 65 x 65 x 68): 3 x 9 tiles in 4-plane chunks, 459 blocks;
+    # 32^3 (34 x 34 x 36): 2 x 5 tiles in one-plane chunks, 340 blocks (the
+    # array allows no more)
+    assert ts.k1_taps_plan((63,) * 3) == (4, (3, 9, 17))
+    assert ts.k1_taps_plan((32,) * 3) == (1, (2, 5, 34))

@@ -280,20 +280,9 @@ def test_k3_plan_at_the_main_path_shapes():
     assert gx * gy * gz >= 264
 
 
-def test_k4_route_follows_the_tap_list():
-    """K4's routes: the uniform box; 27 taps at (-1, 0, 1)^3 in product order
-    (the RAP levels' layout, whatever the weights); any other list."""
-    box_w, offs = _taps("box")
-    rap_w, _ = _taps("rap27")
-    assert tt.k4_route(ts.taps_of(box_w, offs)) == 1
-    assert tt.k4_route(ts.taps_of(rap_w, offs)) == 2
-    assert tt.k4_route(ts.taps_of(rap_w[::-1], offs[::-1])) == 0
-    assert tt.k4_route(ts.taps_of(rap_w[:7], offs[:7])) == 0
-
-
 def _k4_cover(gs, plan):
     zchunk, (gx, gy, gz) = plan
-    ty, tx = tt.K4_TILE
+    ty, tx = ts.ZMARCH_TILE
     cover = np.zeros((gz * zchunk, gy * ty, gx * tx), dtype=int)
     for bz in range(gz):
         for by in range(gy):
@@ -314,12 +303,12 @@ def test_k4_plan_covers_every_fine_plane_once(gs):
     >= 3 x 132 blocks wherever the array allows it with one-plane chunks."""
     zchunk, (gx, gy, gz) = tt.k4_plan(gs)
     Zr, Yr, Xr = ts.padded_shape(gs)
-    ty, tx = tt.K4_TILE
-    assert 1 <= zchunk <= tt.K4_MAX_ZCHUNK
+    ty, tx = ts.ZMARCH_TILE
+    assert 1 <= zchunk <= ts.ZMARCH_MAX_ZCHUNK
     assert (_k4_cover(gs, (zchunk, (gx, gy, gz))) == 1).all()
     assert (gx - 1) * tx < Xr and (gy - 1) * ty < Yr and (gz - 1) * zchunk < Zr
     assert gx * tx >= Xr and gy * ty >= Yr and gz * zchunk >= Zr
-    assert gx * gy * gz >= min(tt.K4_MIN_BLOCKS, Zr * gx * gy)
+    assert gx * gy * gz >= min(ts.ZMARCH_MIN_BLOCKS, Zr * gx * gy)
     if gs == (60, 96, 128):
         assert zchunk > 1 and gz * zchunk != Zr
 

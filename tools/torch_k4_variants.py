@@ -139,7 +139,7 @@ def launch(entry, dev, sets, taps, gs, zero_guess, plan, i, route=None):
     zchunk, grid = plan
     _build.launch(entry, "K4 variant", dev, 0, None if zero_guess else x.data_ptr(),
                   b.data_ptr(), s.data_ptr(), ec.data_ptr(), out.data_ptr(), w, dz, dy, dx, n,
-                  tt.k4_route(taps) if route is None else route, float(w_off), float(w_c - w_off), *gs, *b.shape,
+                  ts.tap_route(taps) if route is None else route, float(w_off), float(w_c - w_off), *gs, *b.shape,
                   *ec.shape, int(zero_guess), *grid, zchunk, 0.0)
     return out
 
