@@ -7,9 +7,14 @@ device state is torch tensors. Every Pallas kernel of the reference becomes a
 CUDA C++ kernel written for sm_90a (`csrc/`), built at first use by
 `ops/_build.py`, with a plain PyTorch version beside it that the CPU runs.
 
+The generic (algebraic) path runs no custom kernel, as in the reference;
+its host setup uses the port's copy of the reference's native setup library
+(`native/amg_setup.cpp`, built with g++ by `native_backend.py`).
+
 Entry points (`setup.structured.build_structured_hierarchy`,
 `solve.struct_cycle.struct_solve`, `solve.struct_cycle.struct_timed_cycles`;
 `setup.structured.build_dia_structured_hierarchy`, `solve.mixed.mixed_pcg`
-for the elasticity path) run on the CUDA device unless the caller passes
-`device="cpu"`.
+for the elasticity path; `setup.hierarchy.build_hierarchy`,
+`solve.driver.solve` and `solve.driver.cheby_setup` for the generic path)
+run on the CUDA device unless the caller passes `device="cpu"`.
 """

@@ -19,6 +19,17 @@ With masks (1 on free dofs, 0 on Dirichlet identity rows), P and R are
 MaskedTransfers: P = diag(fine_mask) P0 diag(coarse_mask) and R its
 transpose.
 
+A level of the classical (generic) hierarchy has "transfer": None, its
+matrices as CSR arrays in the format they take on the device,
+
+    {"kind": "ell", "indptr", "indices", "data", "shape"[, "k"]}
+    | {"kind": "bsr", "indptr", "indices", "data", "shape", "bm", "bn"}
+
+(ELL rows padded to k, by default the widest row), for "A" (level 0 may be
+any of the operator kinds above) and for "P" and "R" (each None or a
+matrix), and block smoothers' "sm" also holds "block_inv" and
+"block_inv_bwd" (nblocks, bs, bs).
+
 plus the dense `coarse_Ainv` of the coarsest level.
 """
 
@@ -37,14 +48,34 @@ from amg_tpu_torch.setup.structured import (
     VarStencilOperator,
 )
 from amg_tpu_torch.smooth.smoothers import smoother_data_from_arrays
+from amg_tpu_torch.sparse.bsr import bsr_from_csr
+from amg_tpu_torch.sparse.csr import CSRMatrix
+from amg_tpu_torch.sparse.ell import ell_from_csr
 from amg_tpu_torch.sparse.stencil import StencilOperator
+
 
 
 def _tensor(a, dtype, device):
     return torch.from_numpy(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype)
 
 
+def matrix_from_arrays(m, dtype, device):
+    """An ELLMatrix or BSRMatrix from its CSR arrays (None -> None)."""
+    if m is None:
+        return None
+    csr = CSRMatrix(indptr=np.asarray(m["indptr"]), indices=np.asarray(m["indices"]),
+                    data=np.asarray(m["data"], dtype=np.float64),
+                    shape=tuple(int(s) for s in m["shape"]))
+    if m["kind"] == "ell":
+        return ell_from_csr(csr, k=m.get("k"), dtype=dtype, device=device)
+    if m["kind"] == "bsr":
+        return bsr_from_csr(csr, bm=int(m["bm"]), bn=int(m["bn"]), dtype=dtype, device=device)
+    raise ValueError(f"unknown matrix kind {m['kind']!r}")
+
+
 def operator_from_arrays(A: dict, dtype, device):
+    if A["kind"] in ("ell", "bsr"):
+        return matrix_from_arrays(A, dtype, device)
     offsets = tuple(tuple(int(d) for d in o) for o in A["offsets"])
     grid_shape = tuple(int(s) for s in A["grid_shape"])
     if A["kind"] == "stencil":
@@ -67,7 +98,8 @@ def hierarchy_from_arrays(levels, coarse_Ainv, dtype=torch.float64, device=None)
     device = resolve_device(device)
     out = []
     for lv in levels:
-        P = R = None
+        P = matrix_from_arrays(lv.get("P"), dtype, device)
+        R = matrix_from_arrays(lv.get("R"), dtype, device)
         if lv["transfer"] is not None:
             fs = tuple(int(s) for s in lv["transfer"]["fine_shape"])
             cs = tuple(int(s) for s in lv["transfer"]["coarse_shape"])

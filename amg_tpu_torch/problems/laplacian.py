@@ -47,6 +47,14 @@ def _make(name, offsets, weights, grid_shape) -> Problem:
     )
 
 
+def laplacian_2d_5pt(nx: int, ny: int | None = None) -> Problem:
+    """2D 5-point Laplacian, N = nx*ny."""
+    ny = nx if ny is None else ny
+    offsets = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)]
+    weights = [4.0, -1.0, -1.0, -1.0, -1.0]
+    return _make("5pt", offsets, weights, (nx, ny))
+
+
 def laplacian_3d_7pt(
     nx: int,
     ny: int | None = None,

@@ -1,10 +1,36 @@
-"""Setup-time spectral estimate (counterpart of amg_tpu/setup/rap.py)."""
+"""Galerkin triple product, smoothed transfers and the setup-time spectral
+estimate (counterpart of amg_tpu/setup/rap.py).
+
+A_c = R A P with R = P^T (SpGEMM through `CSRMatrix.matmul`: the native
+library, or scipy under AMG_TPU_NATIVE=0), and the multadd smoothed
+transfers P~ = (I - w S^-1 A) P, R~ = P~^T.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 
 from amg_tpu_torch.sparse.csr import CSRMatrix
+
+
+def galerkin_product(R: CSRMatrix, A: CSRMatrix, P: CSRMatrix) -> CSRMatrix:
+    """A_c = R A P, with exact zeros from cancellation dropped."""
+    ac = R.matmul(A).matmul(P).to_scipy()
+    ac.sum_duplicates()
+    ac.data[np.abs(ac.data) < 1e-300] = 0.0
+    ac.eliminate_zeros()
+    return CSRMatrix.from_scipy(ac)
+
+
+def smoothed_transfer(
+    A: CSRMatrix, P: CSRMatrix, scale: np.ndarray, w: float
+) -> tuple[CSRMatrix, CSRMatrix]:
+    """P~ = (I - w S^-1 A) P and R~ = P~^T; `scale` is diag(A) or the L1 row
+    norms, matching the smoother in use."""
+    g = sp.identity(A.n_rows, format="csr") - sp.diags(w / scale) @ A.to_scipy()
+    ps = (g @ P.to_scipy()).tocsr()
+    return CSRMatrix.from_scipy(ps), CSRMatrix.from_scipy(ps.T.tocsr())
 
 
 def estimate_rho_dinv_a(

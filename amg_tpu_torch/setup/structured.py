@@ -492,7 +492,7 @@ def build_structured_hierarchy(
         hl = HostLevel(A=A_csr)
         hl.weight = _smoother_weight(A_csr, smoother)
         hh.levels.append(hl)
-        sm = make_smoother_data(A_csr, smoother, w=hl.weight)
+        sm = make_smoother_data(A_csr, smoother, w=hl.weight, jgs_weight="auto")
         n = A_csr.n_rows
         if n <= max_coarse_size or lvl == max_levels - 1 or min(shape) < 5:
             levels.append({"A": A_arr, "sm": sm, "transfer": None})
@@ -659,7 +659,7 @@ def build_dia_structured_hierarchy(
         hl = HostLevel(A=A_csr)
         hl.weight = _smoother_weight(A_csr, smoother)
         hh.levels.append(hl)
-        sm = make_smoother_data(A_csr, smoother, w=hl.weight)
+        sm = make_smoother_data(A_csr, smoother, w=hl.weight, jgs_weight="auto")
         n = A_csr.n_rows
         mask_f = _identity_row_mask(A_csr.to_scipy())
         if mask_f.any():

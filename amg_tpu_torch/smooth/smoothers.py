@@ -1,17 +1,24 @@
-"""Jacobi-family smoothers (counterpart of amg_tpu/smooth/smoothers.py).
+"""The smoother family (counterpart of amg_tpu/smooth/smoothers.py).
 
-This slice ports JACOBI and L1_JACOBI:
+  JACOBI / L1_JACOBI    u += w S^-1 (f - A u),  S = diag(A) or L1 row norms
+  HYBRID_JGS            Gauss-Seidel within fixed row blocks, Jacobi across
+                        blocks: the precomputed dense inverse of
+                        (D + tril(A_block)) applied as one batched matrix-
+                        vector product (`torch.bmm`)
+  HYBRID_JGS_BACKWARD   the transposed variant, (D + triu(A_block))^-1
+  GS                    exact sequential Gauss-Seidel: HYBRID_JGS with one
+                        block spanning the matrix
+  SYM_JACOBI /          the SPD-preserving symmetrized sweep
+  SYM_L1_JACOBI         e = w S^-1 (2S/w - A) w S^-1 r
 
-    u_new = u + w S^-1 (f - A u),   S = diag(A) or the L1 row norms.
-
-The hybrid Jacobi-Gauss-Seidel, Gauss-Seidel and symmetrized smoothers come
-with the generic-AMG slice; asking for them raises NotImplementedError.
+The float32 block products need full float32: PyTorch's default
+(`torch.backends.cuda.matmul.allow_tf32` False).
 """
 
 from __future__ import annotations
 
 import enum
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,61 +36,147 @@ class SmootherType(enum.Enum):
     SYM_L1_JACOBI = "sym_l1_jacobi"
 
 
-_PORTED = (SmootherType.JACOBI, SmootherType.L1_JACOBI)
-
-
-def _require_ported(smoother: SmootherType) -> None:
-    if smoother not in _PORTED:
-        raise NotImplementedError(
-            f"smoother {smoother.value} is ported with the generic-AMG slice; "
-            "this slice has JACOBI and L1_JACOBI"
-        )
+JACOBI_TYPES = (SmootherType.JACOBI, SmootherType.L1_JACOBI)
+BLOCK_TYPES = (SmootherType.HYBRID_JGS, SmootherType.HYBRID_JGS_BACKWARD, SmootherType.GS)
+# Smoothers whose error propagator is symmetric in the A inner product
+SYMMETRIC_TYPES = (SmootherType.SYM_JACOBI, SmootherType.SYM_L1_JACOBI)
 
 
 class SmootherData(NamedTuple):
     """Per-level smoother state.
 
-    scale:      (n,) — S = diag(A) (JACOBI) or L1 row norms (L1_JACOBI).
-    inv_wscale: (n,) — w / S, the multiplier applied to residuals.
-    w:          ()   — damping weight.
+    scale:         (n,) — S = diag(A) (Jacobi flavors) or the L1 row norms.
+    inv_wscale:    (n,) — w / S, the multiplier applied to residuals.
+    w:             ()   — damping weight.
+    block_inv:     (nblocks, bs, bs) or None — inverse of (D + tril) of the
+                   bs x bs diagonal blocks of A, identity-padded past n.
+    block_inv_bwd: the same for the upper-triangular (transposed) sweep.
     """
 
     scale: torch.Tensor
     inv_wscale: torch.Tensor
     w: torch.Tensor
+    block_inv: Optional[torch.Tensor] = None
+    block_inv_bwd: Optional[torch.Tensor] = None
 
 
-def make_smoother_data(A_csr, smoother: SmootherType, w: float = 1.0) -> dict:
+def _block_inverses(A_csr, bs: int, nblocks: int, upper: bool) -> np.ndarray:
+    n = A_csr.n_rows
+    s = A_csr.to_scipy()
+    out = np.tile(np.eye(bs, dtype=SETUP_DTYPE), (nblocks, 1, 1))
+    for b in range(nblocks):
+        lo, hi = b * bs, min((b + 1) * bs, n)
+        blk = s[lo:hi, lo:hi].toarray()
+        tri = np.triu(blk) if upper else np.tril(blk)
+        m = hi - lo
+        d = np.diag(blk)
+        np.fill_diagonal(tri, np.where(d == 0.0, 1.0, d))
+        tgt = out[b]  # identity-padded past n
+        tgt[:m, :m] = tri
+        out[b] = np.linalg.inv(tgt)
+    return out
+
+
+def _jgs_auto_weight(A_csr, inv_fwd: np.ndarray, bs: int, nblocks: int) -> float:
+    """1 if the undamped hybrid sweep contracts (rho(I - M^-1 A) <= 1.02),
+    else 1/rho(M^-1 A): host power iterations from default_rng(0)."""
+    n = A_csr.n_rows
+    rng = np.random.default_rng(0)
+    s_op = A_csr.to_scipy()
+
+    def apply_MinvA(v):
+        y = s_op @ v
+        yp = np.zeros(nblocks * bs)
+        yp[:n] = y
+        yp = yp.reshape(nblocks, bs)
+        return np.einsum("bij,bj->bi", inv_fwd, yp).reshape(-1)[:n]
+
+    def rho_power(apply_fn, iters=50):
+        x = rng.standard_normal(n)
+        lam = 0.0
+        for _ in range(iters):
+            y = apply_fn(x)
+            nrm = np.linalg.norm(y)
+            if nrm == 0.0:
+                return 0.0
+            lam = nrm / np.linalg.norm(x)
+            x = y / nrm
+        return lam
+
+    rho_E = rho_power(lambda v: v - apply_MinvA(v))
+    if rho_E <= 1.02:
+        return 1.0  # already convergent: exact undamped semantics
+    return 1.0 / max(rho_power(apply_MinvA), 1.0)
+
+
+def make_smoother_data(
+    A_csr, smoother: SmootherType, w: float = 1.0, block_size: int = 128, jgs_weight=None
+) -> dict:
     """Precompute the smoother state from the host CSR matrix at setup time,
-    as float64 arrays {scale, inv_wscale, w} (the Jacobi branch of the
-    reference's make_smoother_data); `smoother_data_from_arrays` puts them on
-    the device."""
-    _require_ported(smoother)
-    if smoother == SmootherType.L1_JACOBI:
+    as float64 arrays {scale, inv_wscale, w[, block_inv, block_inv_bwd]};
+    `smoother_data_from_arrays` puts them on the device.
+
+    jgs_weight (block smoothers): None = undamped, "auto" = damped by
+    1/rho(M^-1 A) only where the sweep diverges, or a float weight."""
+    if smoother in (SmootherType.L1_JACOBI, SmootherType.SYM_L1_JACOBI):
         scale = A_csr.l1_row_norms()
     else:
         scale = A_csr.diagonal().astype(SETUP_DTYPE)
     # guard empty/zero rows (padded or disconnected): unit scale
     scale = np.where(scale == 0.0, 1.0, scale)
-    return {"scale": scale, "inv_wscale": w / scale, "w": np.float64(w)}
+    out = {"scale": scale, "inv_wscale": w / scale, "w": np.float64(w)}
+    if smoother in BLOCK_TYPES:
+        n = A_csr.n_rows
+        bs = n if smoother == SmootherType.GS else min(block_size, n)
+        nblocks = -(-n // bs)
+        inv_fwd = _block_inverses(A_csr, bs, nblocks, upper=False)
+        inv_bwd = _block_inverses(A_csr, bs, nblocks, upper=True)
+        if jgs_weight == "auto":
+            jgs_w = _jgs_auto_weight(A_csr, inv_fwd, bs, nblocks)
+        else:
+            jgs_w = 1.0 if jgs_weight is None else float(jgs_weight)
+        out["block_inv"] = jgs_w * inv_fwd
+        out["block_inv_bwd"] = jgs_w * inv_bwd
+    return out
 
 
 def smoother_data_from_arrays(arrays: dict, dtype, device) -> SmootherData:
     def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float64)).to(
-            device=device, dtype=dtype
-        )
+        if a is None:
+            return None
+        return torch.from_numpy(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype)
 
     return SmootherData(
-        scale=t(arrays["scale"]), inv_wscale=t(arrays["inv_wscale"]), w=t(arrays["w"])
+        scale=t(arrays["scale"]), inv_wscale=t(arrays["inv_wscale"]), w=t(arrays["w"]),
+        block_inv=t(arrays.get("block_inv")), block_inv_bwd=t(arrays.get("block_inv_bwd")),
     )
 
 
+def _block_solve(block_inv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Apply the batched dense (D+L_block)^-1 to r: one batched product."""
+    nblocks, bs, _ = block_inv.shape
+    n = r.shape[0]
+    npad = nblocks * bs
+    rp = torch.nn.functional.pad(r, (0, npad - n)) if npad != n else r
+    out = torch.bmm(block_inv, rp.view(nblocks, bs, 1))
+    return out.reshape(npad)[:n]
+
+
 def _one_sweep(A, sm: SmootherData, smoother: SmootherType, u, f, zero_guess):
-    """u_new = u + S^-1 w (f - A u); zero_guess skips the matvec."""
-    _require_ported(smoother)
+    """u_new = u + M^-1 (f - A u); zero_guess skips the matvec."""
     r = f if zero_guess else f - (A @ u)
-    du = sm.inv_wscale * r
+    if smoother in JACOBI_TYPES:
+        du = sm.inv_wscale * r
+    elif smoother in (SmootherType.HYBRID_JGS, SmootherType.GS):
+        du = _block_solve(sm.block_inv, r)
+    elif smoother == SmootherType.HYBRID_JGS_BACKWARD:
+        du = _block_solve(sm.block_inv_bwd, r)
+    elif smoother in SYMMETRIC_TYPES:
+        # e = w S^-1 (2 S/w t - A t),  t = w S^-1 r  — SPD symmetrized sweep
+        t = sm.inv_wscale * r
+        du = 2.0 * t - sm.inv_wscale * (A @ t)
+    else:
+        raise ValueError(f"unknown smoother {smoother}")
     return du if zero_guess else u + du
 
 
@@ -96,12 +189,38 @@ def smooth(
     num_sweeps: int = 1,
     zero_guess: bool = False,
 ):
-    """Run `num_sweeps` smoothing sweeps. A DIA device operator runs the whole
-    Jacobi chain itself: one pad/unpad pair and one K5 `sweep` launch per
-    sweep."""
-    if num_sweeps > 0 and hasattr(A, "fused_jacobi_sweeps"):
-        _require_ported(smoother)
+    """Run `num_sweeps` smoothing sweeps. A DIA device operator runs a Jacobi
+    chain itself (one pad/unpad pair and one K5 `sweep` launch per sweep);
+    the block smoothers on an operator with a fused `residual` take it."""
+    if num_sweeps > 0 and smoother in JACOBI_TYPES and hasattr(A, "fused_jacobi_sweeps"):
         return A.fused_jacobi_sweeps(u, f, sm.inv_wscale, num_sweeps, zero_guess=zero_guess)
+    if num_sweeps > 0 and smoother in BLOCK_TYPES and hasattr(A, "residual"):
+        inv = sm.block_inv_bwd if smoother == SmootherType.HYBRID_JGS_BACKWARD else sm.block_inv
+        for s in range(num_sweeps):
+            if zero_guess and s == 0:
+                u = _block_solve(inv, f)
+            else:
+                u = u + _block_solve(inv, A.residual(u, f))
+        return u
     for s in range(num_sweeps):
         u = _one_sweep(A, sm, smoother, u, f, zero_guess and s == 0)
     return u
+
+
+def smooth_transpose(
+    A,
+    sm: SmootherData,
+    smoother: SmootherType,
+    u: torch.Tensor,
+    f: torch.Tensor,
+    num_sweeps: int = 1,
+    zero_guess: bool = False,
+):
+    """The adjoint sweep (backward ordering), the post-smoother that keeps
+    cycles symmetric; the Jacobi flavors are self-adjoint in the S inner
+    product."""
+    t = {
+        SmootherType.HYBRID_JGS: SmootherType.HYBRID_JGS_BACKWARD,
+        SmootherType.HYBRID_JGS_BACKWARD: SmootherType.HYBRID_JGS,
+    }.get(smoother, smoother)
+    return smooth(A, sm, t, u, f, num_sweeps, zero_guess)

@@ -1,9 +1,10 @@
 """Multiplicative V-cycle (counterpart of amg_tpu/solve/cycles.py).
 
 The port has the MULT cycle: smooth -> residual -> restrict -> ... ->
-dense coarse solve -> prolong + correct -> smooth, and `cycle_step` for it.
-The additive family (MULTADD, AFACx, AFACj, BPX, MULT_MULTADD) comes with the
-generic-AMG slice; `cycle_step` raises NotImplementedError for it.
+dense coarse solve -> prolong + correct -> adjoint smooth, and `cycle_step`
+for it. The additive family (MULTADD, AFACx, AFACj, BPX, MULT_MULTADD)
+comes with `solve/async_sim.py`; `cycle_step` raises NotImplementedError
+for it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from amg_tpu_torch.ops.vector import residual
 from amg_tpu_torch.setup.hierarchy import Hierarchy
-from amg_tpu_torch.smooth.smoothers import SmootherType, smooth
+from amg_tpu_torch.smooth.smoothers import SmootherType, smooth, smooth_transpose
 
 
 class CycleType(enum.Enum):
@@ -29,7 +30,8 @@ class CycleType(enum.Enum):
 
 @dataclass(frozen=True)
 class CycleConfig:
-    """Static cycle knobs (the MULT subset of the reference's CycleConfig)."""
+    """Static cycle knobs (the MULT subset of the reference's CycleConfig;
+    the additive cycles' knobs come with those cycles)."""
 
     cycle: CycleType = CycleType.MULT
     smoother: SmootherType = SmootherType.L1_JACOBI
@@ -45,7 +47,9 @@ def coarse_solve(hier: Hierarchy, r: torch.Tensor) -> torch.Tensor:
 def mult_vcycle(
     hier: Hierarchy, cfg: CycleConfig, x: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
-    """One multiplicative V(pre, post) cycle."""
+    """One multiplicative V(pre, post) cycle; the post-sweeps are the
+    adjoint of the pre-sweeps (`smooth_transpose`), which keeps the cycle
+    symmetric under the hybrid JGS smoothers."""
     L = hier.num_levels
     fs = [b]
     xs = [x]
@@ -64,9 +68,8 @@ def mult_vcycle(
     for k in reversed(range(L - 1)):
         lv = hier.levels[k]
         u = xs[k] + lv.P @ xs[k + 1]
-        # the reference's smooth_transpose: the Jacobi flavors are
-        # self-adjoint, so the post-sweep is the same sweep
-        xs[k] = smooth(lv.A, lv.sm, cfg.smoother, u, fs[k], num_sweeps=cfg.num_post_sweeps)
+        xs[k] = smooth_transpose(lv.A, lv.sm, cfg.smoother, u, fs[k],
+                                 num_sweeps=cfg.num_post_sweeps)
     return xs[0]
 
 
@@ -75,6 +78,6 @@ def cycle_step(hier: Hierarchy, cfg: CycleConfig, x: torch.Tensor, b: torch.Tens
     if cfg.cycle == CycleType.MULT:
         return mult_vcycle(hier, cfg, x, b)
     raise NotImplementedError(
-        f"cycle {cfg.cycle.value} is ported with the generic-AMG slice "
-        "(ROADMAP queue 1, item 10); the port has MULT"
+        f"cycle {cfg.cycle.value} comes with the additive half of the generic-AMG slice "
+        "(ROADMAP queue 1, with solve/async_sim.py); the port has MULT"
     )

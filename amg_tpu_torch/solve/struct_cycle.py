@@ -52,7 +52,7 @@ from amg_tpu_torch.ops.transfer import (
 )
 from amg_tpu_torch.setup.hierarchy import Hierarchy
 from amg_tpu_torch.setup.structured import StructuredRestrict
-from amg_tpu_torch.smooth.smoothers import _require_ported
+from amg_tpu_torch.smooth.smoothers import JACOBI_TYPES
 from amg_tpu_torch.solve.cycles import CycleConfig, mult_vcycle
 from amg_tpu_torch.sparse.stencil import StencilOperator
 
@@ -332,7 +332,11 @@ def _prepare(hier: Hierarchy, cfg: CycleConfig, b, device):
     device = resolve_device(device)
     if hier.device != device:
         raise ValueError(f"hierarchy lives on {hier.device}, solve asked for {device}")
-    _require_ported(cfg.smoother)
+    if cfg.smoother not in JACOBI_TYPES:
+        raise NotImplementedError(
+            f"the structured cycle's kernels run Jacobi sweeps, not {cfg.smoother.value}; "
+            "solve a hierarchy with block smoothers through solve.driver.solve"
+        )
     b = torch.as_tensor(b).to(device=device, dtype=hier.dtype)
     return make_struct_spec(hier), make_coarse_specs(hier), b
 

@@ -1,8 +1,8 @@
 """Host-side CSR matrix (numpy/scipy) used during setup.
 
-Counterpart of amg_tpu/sparse/csr.py. SpGEMM and transpose go through
-scipy.sparse; the reference's optional native C++ route is not part of this
-package.
+Counterpart of amg_tpu/sparse/csr.py. SpGEMM and transpose go through the
+port's native setup library (`amg_tpu_torch.native_backend`) unless
+AMG_TPU_NATIVE=0 selects scipy.sparse, their plain versions.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import scipy.sparse as _sp
 
+from amg_tpu_torch import native_backend as nb
 from amg_tpu_torch.dtypes import INDEX_DTYPE, SETUP_DTYPE
 
 
@@ -47,6 +48,20 @@ class CSRMatrix:
     def n_rows(self) -> int:
         return self.shape[0]
 
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    @property
+    def max_row_nnz(self) -> int:
+        if self.n_rows == 0:
+            return 0
+        return int(np.max(np.diff(self.indptr)))
+
     def diagonal(self) -> np.ndarray:
         return self.to_scipy().diagonal()
 
@@ -56,9 +71,21 @@ class CSRMatrix:
         return np.asarray(out).reshape(-1).astype(SETUP_DTYPE)
 
     def transpose(self) -> "CSRMatrix":
+        if nb.use_native():
+            bi, bj, bv = nb.transpose(self.indptr, self.indices, self.data, self.shape)
+            return CSRMatrix(indptr=bi.astype(INDEX_DTYPE), indices=bj.astype(INDEX_DTYPE),
+                             data=bv, shape=(self.n_cols, self.n_rows))
         return CSRMatrix.from_scipy(self.to_scipy().T.tocsr())
 
     def matmul(self, other: "CSRMatrix") -> "CSRMatrix":
+        if nb.use_native():
+            ci, cj, cv = nb.spgemm(
+                self.indptr, self.indices, self.data,
+                other.indptr, other.indices, other.data,
+                self.shape, other.shape,
+            )
+            return CSRMatrix(indptr=ci.astype(INDEX_DTYPE), indices=cj.astype(INDEX_DTYPE),
+                             data=cv, shape=(self.n_rows, other.n_cols))
         return CSRMatrix.from_scipy(self.to_scipy() @ other.to_scipy())
 
     def matvec(self, x: np.ndarray) -> np.ndarray:

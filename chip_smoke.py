@@ -65,7 +65,24 @@ Phases (any failure exits non-zero and prints no result line):
      on the same bf16 planes: the same iterations and x within 1e-6
      (bit-equality logged). On the 157k beam that stream does not converge
      (ROADMAP F5), so it is not a path here;
- 10. timing with CUDA events: the V(1,1) per-cycle time of
+ 10. the generic (algebraic) AMG path, no custom kernel on it (its launch
+     counts are logged): `build_hierarchy` of the 27-point Laplacian at 96^3
+     (884,736 dofs) with the default HierarchyParams (HMIS through the
+     port's native setup library, ext+i, p_max_elmts 4, L1-Jacobi, float64,
+     the stencil on level 0), whose level_n and level_nnz must equal the
+     JAX package's; `solve` MULT V(1,1) to tol 1e-8 from b =
+     default_rng(0).random(n) in the JAX package's cycle count with a true
+     float64 residual <= 1e-8 on the host CSR and the first five history
+     entries the JAX package's to rtol 1e-10; the same hierarchy in
+     float32 to tol 1e-4 within one cycle of the float64 history's first
+     value <= 1e-4; the host clock per cycle, the device's busy time and
+     idle share and its largest rows; ELL, BSR (at choose_bsr_shape's tile)
+     and cuSPARSE CSR spmv on levels 1 and 2 and on elasticity_beam(48, 12,
+     12) in both dtypes beside their byte bounds; at 48^3, hybrid JGS, Jacobi
+     with Chebyshev after cheby_setup(num_iters=20), and PCG over an
+     L1-Jacobi V(1,1), each to 1e-8 in the JAX package's cycle count
+     (GENERIC_REF, from tools/torch_generic_reference.py);
+ 11. timing with CUDA events: the V(1,1) per-cycle time of
      `struct_timed_cycles` (slope between two cycle counts) and K1, K3, K4
      at their 126^3 shapes beside their plain versions, their DRAM byte
      bound and, for K1, the `torch.nn.functional.conv3d` yardstick; K3's
@@ -1160,6 +1177,206 @@ def elasticity_bf16_phase(device, errs):
             "bit_equal": exact}, fails
 
 
+# the generic (algebraic) path: the 27-point Laplacian at GENERIC_N^3
+# (884,736 dofs) through build_hierarchy with the default HierarchyParams
+# (native HMIS, ext+i, p_max_elmts 4, L1-Jacobi, float64, the stencil on level
+# 0) and driver.solve; its hybrid JGS, Chebyshev and PCG solves at 48^3
+# (golden config9's size). GENERIC_REF holds the JAX package's own results
+# for the same inputs on the CPU in float64
+# (`JAX_PLATFORMS=cpu python3 tools/torch_generic_reference.py`).
+GENERIC_N = 96
+GENERIC_SIDE = 48
+GENERIC_REF = {
+    "96": {
+        "level_n": [884736, 110592, 27719, 6436, 891, 201, 39],
+        "level_nnz": [23393656, 7598160, 3643775, 1029788, 121629, 19979, 1257],
+        "iters": 41,
+        "history": [1.0, 1.265019076876827, 0.6926628905678609,
+                    0.3631215331591324, 0.19504097144476074],
+    },
+    "48 hybrid_jgs": {"iters": 21},
+    "48 jacobi cheby": {"iters": 14},
+    "48 l1_jacobi pcg": {"iters": 12},
+}
+BEAM_SPMV = (48, 12, 12)  # the JAX bench's aux_bsr matrix: 24,336 dofs
+
+
+def spmv_timing(name, csr, device, rng):
+    """ELL, BSR (at choose_bsr_shape's tile) and the cuSPARSE CSR matvec of
+    one matrix, CUDA events, float32 and float64, beside the byte bound of
+    y = A x (the CSR values, column indices and row pointers, x and y, each
+    once, at HBM_BYTES_PER_S)."""
+    import torch
+
+    from amg_tpu_torch.sparse.bsr import bsr_from_csr, choose_bsr_shape
+    from amg_tpu_torch.sparse.ell import ell_from_csr
+
+    tile, _ = choose_bsr_shape(csr)
+    n, m = csr.shape
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        item = torch.finfo(dtype).bits // 8
+        xs = [torch.from_numpy(rng.random(m)).to(device=device, dtype=dtype) for _ in range(4)]
+        ell = ell_from_csr(csr, dtype=dtype, device=device)
+        bsr = bsr_from_csr(csr, bm=tile[0], bn=tile[1], dtype=dtype, device=device) if tile else None
+        lib = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr.astype(np.int64)),
+            torch.from_numpy(csr.indices.astype(np.int64)),
+            torch.from_numpy(csr.data), size=csr.shape,
+        ).to(device=device, dtype=dtype)
+        want = (lib @ xs[0]).double()
+        errs = {}
+        for key, mat in (("ell", ell), ("bsr", bsr)):
+            if mat is not None:
+                errs[key] = float(((mat @ xs[0]).double() - want).abs().max() / want.abs().max())
+        bytes_ = csr.nnz * (item + 4) + (n + 1) * 4 + (m + n) * item
+        r = {
+            "ell_ms": cuda_time(lambda i: ell @ xs[i % 4], 50),
+            "bsr_ms": cuda_time(lambda i: bsr @ xs[i % 4], 50) if bsr is not None else None,
+            "cusparse_ms": cuda_time(lambda i: lib @ xs[i % 4], 50),
+            "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bytes": bytes_,
+            "ell_k": ell.k, "bsr_tile": tile, "bsr_kb": bsr.kb if bsr is not None else None,
+            "rel_err_vs_cusparse": errs,
+        }
+        rows[(name, dn)] = r
+        log(f"  spmv {name} ({n}x{m}, {csr.nnz} nnz) {dn}: ELL (k {ell.k}) {r['ell_ms']:.4f} ms, "
+            f"BSR {tile} (kb {r['bsr_kb']}) {r['bsr_ms'] if r['bsr_ms'] is None else round(r['bsr_ms'], 4)} ms, "
+            f"cuSPARSE CSR {r['cusparse_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({bytes_ / 1e6:.1f} MB); rel err vs cuSPARSE {errs}")
+        del ell, bsr, lib
+    return rows
+
+
+def generic_phase(device):
+    """The generic AMG path: returns (record, failures)."""
+    import torch
+
+    from amg_tpu_torch.convert import hierarchy_from_arrays
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.driver import cheby_setup, solve
+
+    t_phase = time.perf_counter()
+    fails, rec = [], {}
+    prob = laplacian_3d_27pt(GENERIC_N)
+    t0 = time.perf_counter()
+    hh, hier64 = build_hierarchy(prob.A, HierarchyParams(), fine_stencil=prob.stencil,
+                                 device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    st = hh.stats()
+    log(f"generic {GENERIC_N}^3 ({prob.n} dofs): setup {setup_s:.2f} s, "
+        f"{sum(st['nnz'])} nnz over {st['num_levels']} levels")
+    for k, (lv, hl) in enumerate(zip(hier64.levels, hh.levels)):
+        log(f"  level {k}: n {hl.A.n_rows}, nnz {hl.A.nnz}, {type(lv.A).__name__}"
+            f"{f', ELL width {lv.A.k}' if hasattr(lv.A, 'k') else ''}")
+    rec.update(setup_s=setup_s, level_n=st["n"], level_nnz=st["nnz"])
+    if st["n"] != GENERIC_REF["96"]["level_n"] or st["nnz"] != GENERIC_REF["96"]["level_nnz"]:
+        fails.append(f"generic {GENERIC_N}^3 hierarchy differs from the reference's")
+
+    cfg = CycleConfig()
+    b_np = np.random.default_rng(0).random(prob.n)
+    b64 = torch.from_numpy(b_np).to(device)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(hier64, cfg, b64, tol=1e-8, device=device)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    x = res.x.cpu().numpy()
+    true_rel = true_rel_residual(prob, x, b_np)
+    hist64 = res.history_list()
+    log(f"generic float64 MULT V(1,1) L1-Jacobi: cycles {res.iters} (reference "
+        f"{GENERIC_REF['96']['iters']}), rel_res {float(res.rel_resnorm):.4e}, true rel_res "
+        f"(float64 CSR) {true_rel:.4e}, {solve_s:.3f} s; launches {counts}")
+    log("  history[:5]", [float(f"{h:.6e}") for h in hist64[:5]],
+        "reference", [float(f"{h:.6e}") for h in GENERIC_REF["96"]["history"][:5]])
+    rec.update(iters64=res.iters, rel_res64=float(res.rel_resnorm), true_rel_res64=true_rel,
+               solve64_s=solve_s, counts=counts, history64_head=hist64[:5])
+    if res.iters != GENERIC_REF["96"]["iters"] or not true_rel <= 1e-8 \
+            or not np.isfinite(x).all():
+        fails.append("generic float64 solve: not the reference's cycles or true residual > 1e-8")
+    # the goldens' tolerance (tests/test_golden.py)
+    if not np.allclose(hist64[:5], GENERIC_REF["96"]["history"], rtol=1e-10, atol=1e-14):
+        fails.append("generic float64 solve: history[:5] differs from the reference's")
+
+    hier32 = hierarchy_from_arrays(*hh.arrays, dtype=torch.float32, device=device)
+    b32 = b64.float()
+    res32 = solve(hier32, cfg, b32, tol=1e-4, device=device)
+    k64 = next(k for k, h in enumerate(hist64) if h <= 1e-4)
+    log(f"generic float32: cycles {res32.iters} to rel_res {float(res32.rel_resnorm):.4e} "
+        f"(float64 history first <= 1e-4 at cycle {k64})")
+    rec.update(iters32=res32.iters, rel_res32=float(res32.rel_resnorm), f64_cycle_1e4=k64)
+    if abs(res32.iters - k64) > 1 or not float(res32.rel_resnorm) <= 1e-4:
+        fails.append("generic float32 solve: not within one cycle of the float64 history")
+
+    # timing of the 96^3 float64 solve: host clock per cycle (tol 0, so every
+    # cycle runs, with its one scalar read), the device's busy time per cycle
+    def run(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve(hier64, cfg, b64, tol=0.0, max_cycles=k, device=device)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    host_ms, s0, s1 = host_slope_ms(run, 5, 15)
+    busy, events, rows = device_per_cycle(
+        lambda k: solve(hier64, cfg, b64, tol=0.0, max_cycles=k, device=device), 5, 10)
+    idle = 1.0 - busy / host_ms if host_ms > 0 else None
+    log(f"generic {GENERIC_N}^3 float64 cycle: host clock {host_ms:.4f} ms per cycle "
+        f"(5 cycles {[round(v, 4) for v in s0]} s, 15 {[round(v, 4) for v in s1]} s); device "
+        f"busy {busy:.4f} ms in {events:.1f} events per cycle; idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    for ms, nev, name in rows[:10]:
+        log(f"  {ms:.4f} ms  {nev:7.1f} launches  {name[:100]}")
+    rec.update(host_ms_per_cycle=host_ms, device_busy_ms_per_cycle=busy,
+               events_per_cycle=events, idle_share=idle)
+
+    rng = np.random.default_rng(SEED + 9)
+    spmv = {}
+    for k in (1, 2):
+        spmv.update(spmv_timing(f"{GENERIC_N}^3 level {k}", hh.levels[k].A, device, rng))
+    del hier32, hier64, hh
+    torch.cuda.empty_cache()
+    beam = elasticity_beam(*BEAM_SPMV)
+    spmv.update(spmv_timing(f"beam {BEAM_SPMV}", beam.A, device, rng))
+    rec["spmv"] = {f"{k[0]} {k[1]}": v for k, v in spmv.items()}
+
+    prob48 = laplacian_3d_27pt(GENERIC_SIDE)
+    b48 = torch.from_numpy(np.random.default_rng(0).random(prob48.n)).to(device)
+    for key, smoother, kw in (("48 hybrid_jgs", SmootherType.HYBRID_JGS, {}),
+                              ("48 jacobi cheby", SmootherType.JACOBI, {"accel": "cheby"}),
+                              ("48 l1_jacobi pcg", SmootherType.L1_JACOBI, {"outer": "pcg"})):
+        t0 = time.perf_counter()
+        _, h48 = build_hierarchy(prob48.A, HierarchyParams(smoother=smoother),
+                                 fine_stencil=prob48.stencil, device=device)
+        c48 = CycleConfig(smoother=smoother)
+        if kw.get("accel") == "cheby":
+            kw["cheby_coeffs"] = cheby_setup(h48, c48, num_iters=20, device=device)
+        torch.cuda.synchronize()
+        setup48 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r48 = solve(h48, c48, b48, tol=1e-8, device=device, **kw)
+        torch.cuda.synchronize()
+        s48 = time.perf_counter() - t0
+        want = GENERIC_REF[key]["iters"]
+        log(f"generic {GENERIC_SIDE}^3 {key[3:]}: cycles {r48.iters} (reference {want}), rel_res "
+            f"{float(r48.rel_resnorm):.4e}; setup {setup48:.2f} s, solve {s48:.3f} s")
+        rec[key] = {"iters": r48.iters, "rel_res": float(r48.rel_resnorm), "setup_s": setup48,
+                    "solve_s": s48}
+        if r48.iters != want or not float(r48.rel_resnorm) <= 1e-8:
+            fails.append(f"generic {key}: not the reference's cycles")
+        del h48
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"generic phase: {rec['phase_s']:.1f} s")
+    return rec, fails
+
+
 def main() -> int:
     import torch
 
@@ -1174,6 +1391,14 @@ def main() -> int:
     t_start = time.perf_counter()
     card = toolchain()
     build()
+    # the native setup library (g++): the structured and DIA setups' RAP
+    # and the generic path's whole host setup run through it; built here so
+    # that no setup time below includes its compile
+    from amg_tpu_torch import native_backend
+
+    t0 = time.perf_counter()
+    native_backend.build()
+    log(f"native setup library built in {time.perf_counter() - t0:.1f} s")
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
     from amg_tpu_torch.problems.elasticity import elasticity_beam
@@ -1278,6 +1503,12 @@ def main() -> int:
     if fel16:
         log("bf16 elasticity path FAILED:", fel16)
         return 1
+    del operators
+    log("generic AMG path:")
+    gen, fgen = generic_phase(device)
+    if fgen:
+        log("generic AMG path FAILED:", fgen)
+        return 1
 
     cycle = cycle_phase(hier32, cfg, b32, device)
     timings = timing_phase(hier32, device, counts, res.iters)
@@ -1336,6 +1567,7 @@ def main() -> int:
     log(json.dumps({"v33": v33}))
     log(json.dumps({"elasticity": el}))
     log(json.dumps({"elasticity_bf16": el16}))
+    log(json.dumps({"generic": gen}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,10 +10,15 @@ plane, chunks that do not divide the planes, one chunk longer than the
 array), and so is K4 (`csrc/prolong_march.cu`). K5 also takes bf16
 coefficient planes in its sweep.
 
+The generic (algebraic) path, which runs no custom kernel: its 24^3 solve
+on the card against the port on the CPU (the same cycles, float64 history
+to 1e-10), ELL and BSR spmv on the card against the CPU, and the DIA
+fine-operator branch of `device_hierarchy` (K5 below float64).
+
 Marked `cuda`; without a card every test skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
-    # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5
+    # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5, -k generic
 
 Tolerances: float64 to 1e-12 and float32 to 1e-5, relative to the largest
 interior value, the zero shell exactly; where the kernel rounds every
@@ -501,3 +506,81 @@ def test_k5_bf16_sweep_equals_plain(device, gs, offsets, dtype):
     assert got.dtype == dtype and torch.equal(got, want)
     with pytest.raises(ValueError, match="bfloat16"):
         tvs.var_stencil_kernel_padded(u, c, offsets, gs, b_pad=b, mode="residual")
+
+
+@pytest.fixture(scope="module")
+def generic_24():
+    """The classical host hierarchy of the 27-point Laplacian at 24^3 (default
+    HierarchyParams: native HMIS, ext+i, L1-Jacobi)."""
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_host_hierarchy
+
+    prob = laplacian_3d_27pt(24)
+    return prob, build_host_hierarchy(prob.A, HierarchyParams())
+
+
+@pytest.mark.parametrize("fmt", ["ell", "bsr_auto"])
+def test_generic_solve_on_the_card_equals_the_cpu(device, generic_24, fmt):
+    """The generic path at 24^3 in float64: the same cycles as the port on
+    the CPU and the history to 1e-10."""
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, device_hierarchy
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.driver import solve
+
+    prob, hh = generic_24
+    params = HierarchyParams(device_format=fmt)
+    b = np.random.default_rng(0).random(prob.n)
+    res = {}
+    for dev in ("cpu", device):
+        hier = device_hierarchy(hh, params, prob.stencil, device=dev)
+        res[str(dev)] = solve(hier, CycleConfig(), torch.from_numpy(b), tol=1e-8, device=dev)
+    cpu, gpu = res["cpu"], res[str(device)]
+    assert gpu.iters == cpu.iters and float(gpu.rel_resnorm) <= 1e-8
+    np.testing.assert_allclose(gpu.history_list(), cpu.history_list(), rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_ell_and_bsr_spmv_on_the_card_equal_the_cpu(device, generic_24, dtype):
+    from amg_tpu_torch.sparse.bsr import bsr_from_csr, choose_bsr_shape
+    from amg_tpu_torch.sparse.ell import ell_from_csr
+
+    _, hh = generic_24
+    rng = np.random.default_rng(13)
+    for m in (hh.levels[1].A, hh.levels[2].A, hh.levels[0].P, hh.levels[0].R):
+        x = torch.from_numpy(rng.random(m.shape[1]))
+        tiles = [(8, 8), (3, 5), choose_bsr_shape(m)[0]]
+        mats = [lambda dev, dt: ell_from_csr(m, dtype=dt, device=dev)] + [
+            lambda dev, dt, t=t: bsr_from_csr(m, bm=t[0], bn=t[1], dtype=dt, device=dev)
+            for t in tiles]
+        for make in mats:
+            want = make("cpu", torch.float64) @ x
+            got = make(device, dtype) @ x.to(device=device, dtype=dtype)
+            torch.cuda.synchronize()
+            err = float((got.double().cpu() - want).abs().max())
+            assert err <= TOL[dtype] * float(want.abs().max())
+
+
+def test_dia_fine_operator_runs_k5_in_float32_on_the_card(device):
+    """device_hierarchy's DIA branch: a VarStencilOperator fine operator
+    becomes K5's DiaKernelOperator on the card below float64 (and stays the
+    plain VarStencilOperator in float64); its matvec equals the host CSR."""
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.setup.structured import (
+        DiaKernelOperator,
+        VarStencilOperator,
+        csr_to_dia_stencil,
+    )
+
+    prob = elasticity_beam(12, 4, 4, bc="identity")
+    vs = csr_to_dia_stencil(prob.A, prob.grid_shape)
+    x = np.random.default_rng(14).random(prob.n)
+    want = prob.A @ x
+    scale = np.abs(prob.A.to_scipy()) @ np.abs(x)  # the sum of |terms| of each row
+    for dtype, kind in ((torch.float32, DiaKernelOperator), (torch.float64, VarStencilOperator)):
+        _, hier = build_hierarchy(prob.A, HierarchyParams(num_functions=3, dtype=dtype),
+                                  fine_stencil=vs, device=device)
+        A0 = hier.levels[0].A
+        assert type(A0) is kind
+        got = (A0 @ torch.from_numpy(x).to(device=device, dtype=dtype)).double().cpu().numpy()
+        assert np.abs(got - want).max() <= TOL[dtype] * scale.max()

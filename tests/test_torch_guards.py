@@ -48,7 +48,7 @@ _FORBIDDEN = re.compile(r"\bimport jax|\bfrom jax|\bamg_tpu\.|\bfrom amg_tpu |\b
 def test_no_source_file_names_jax_or_the_jax_package():
     hits = []
     for path in sorted(PKG.rglob("*")):
-        if path.suffix not in (".py", ".cu", ".cuh") or "_build" in path.parts:
+        if path.suffix not in (".py", ".cu", ".cuh", ".cpp") or "_build" in path.parts:
             continue
         for lineno, line in enumerate(path.read_text().splitlines(), 1):
             if _FORBIDDEN.search(line.replace("amg_tpu_torch", "")):
@@ -79,6 +79,49 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         struct_timed_cycles(hier, CycleConfig(), b, 2)
     # the explicit CPU request runs the plain path
     assert struct_solve(hier, CycleConfig(), b, device="cpu").iters > 0
+
+
+def test_generic_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy, device_hierarchy
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.driver import cheby_setup, solve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = laplacian_3d_27pt(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_hierarchy(prob.A, fine_stencil=prob.stencil)
+    hh, hier = build_hierarchy(prob.A, fine_stencil=prob.stencil, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_hierarchy(hh, HierarchyParams())
+    assert device_hierarchy(hh, HierarchyParams(), device="cpu").device.type == "cpu"
+    b = torch.from_numpy(np.random.default_rng(0).random(prob.n))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve(hier, CycleConfig(), b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cheby_setup(hier, CycleConfig())
+    with pytest.raises(ValueError, match="hierarchy lives on"):
+        solve(hier, CycleConfig(), b, device="meta")
+    # the explicit CPU request runs the plain path
+    assert solve(hier, CycleConfig(), b, device="cpu").iters > 0
+    assert cheby_setup(hier, CycleConfig(), num_iters=3, device="cpu").beta > 0
+
+
+def test_native_setup_raises_when_it_cannot_be_built(monkeypatch, tmp_path):
+    """The port's "hmis" is the native library's algorithm, never a silent
+    numpy fallback: without a compiler it raises."""
+    import scipy.sparse as sp
+
+    from amg_tpu_torch import native_backend as nb
+    from amg_tpu_torch.setup.coarsen import COARSENING
+
+    monkeypatch.setattr(nb, "_lib", None)
+    monkeypatch.setattr(nb, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    S = sp.csr_matrix(np.eye(4, k=1) + np.eye(4, k=-1))
+    with pytest.raises(RuntimeError, match="needs g\\+\\+"):
+        COARSENING["hmis"](S)
+    assert not list(tmp_path.glob("*.so"))
 
 
 def test_a_hierarchy_on_another_device_is_refused():

@@ -163,9 +163,14 @@ def test_mult_vcycle_matches_jax(n, coarse_op, pre, post):
 
 
 def test_unported_smoothers_raise():
-    from amg_tpu_torch.smooth.smoothers import make_smoother_data
+    """The structured cycle's kernels run Jacobi sweeps: struct_solve refuses
+    the other smoothers, whose data the builder now makes (they run through
+    solve.driver.solve, tests/test_torch_smoothers.py)."""
+    from amg_tpu_torch.solve.struct_cycle import struct_solve
 
-    A = laplacian_3d_7pt(4).A
+    prob = laplacian_3d_7pt(8)
     for sm in (SmootherType.HYBRID_JGS, SmootherType.GS, SmootherType.SYM_L1_JACOBI):
-        with pytest.raises(NotImplementedError, match="generic-AMG slice"):
-            make_smoother_data(A, sm)
+        _, hier = build_structured_hierarchy(prob.stencil, smoother=sm, device="cpu")
+        assert (hier.levels[0].sm.block_inv is None) == (sm == SmootherType.SYM_L1_JACOBI)
+        with pytest.raises(NotImplementedError, match="Jacobi sweeps"):
+            struct_solve(hier, CycleConfig(smoother=sm), torch.ones(prob.n), device="cpu")

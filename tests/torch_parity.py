@@ -4,6 +4,10 @@ built by the JAX package across to the PyTorch port as plain numpy arrays
 mode."""
 
 import numpy as np
+import torch
+
+# the matrices of a generic level that cross over to the port
+GENERIC_MATRICES = ("P", "R")
 
 
 def interp(fn, *args, **kw):
@@ -14,12 +18,62 @@ def interp(fn, *args, **kw):
         return fn(*args, **kw)
 
 
-def export_jax_hierarchy(hier, dia=False):
-    """(levels, coarse_Ainv) of a JAX structured Hierarchy, as float64 numpy
-    arrays and dicts for amg_tpu_torch.convert.hierarchy_from_arrays. With
-    dia=True (a hierarchy of build_dia_structured_hierarchy, whose CPU levels
-    are VarStencilOperators) the levels become the port's DIA operators, and
-    masked transfers carry their masks."""
+
+
+def f64(a):
+    return np.asarray(a, dtype=np.float64)
+
+
+def gs_scan_sweep(ell, diag, u, f):
+    """Exact sequential Gauss-Seidel over the rows of the port's ELLMatrix,
+    one row at a time: the oracle of the GS smoother (O(n) steps)."""
+    u = u.clone()
+    for i in range(ell.n_rows):
+        acc = torch.sum(ell.vals[i] * u[ell.cols[i].long()]) - diag[i] * u[i]
+        u[i] = (f[i] - acc) / diag[i]
+    return u
+
+
+def bsr_blocks(m):
+    """The port's BSR tiles, (nrb, bm, kb * bn), as the reference's
+    (nrb, kb, bm, bn) layout."""
+    return m.tiles.view(m.nrb, m.bm, m.kb, m.bn).permute(0, 2, 1, 3)
+
+
+def level_sizes(hier):
+    """The rows of every level's operator (the reference's
+    Hierarchy.level_sizes)."""
+    return tuple(lv.A.shape[0] for lv in hier.levels)
+
+
+def _matrix(dev, csr):
+    """A JAX ELLMatrix / BSRMatrix as the CSR arrays it was built from (the
+    host level's matrix) and its device format."""
+    from amg_tpu.sparse.bsr import BSRMatrix
+    from amg_tpu.sparse.ell import ELLMatrix
+
+    if dev is None:
+        return None
+    d = {"indptr": np.asarray(csr.indptr), "indices": np.asarray(csr.indices),
+         "data": f64(csr.data), "shape": tuple(csr.shape)}
+    if isinstance(dev, ELLMatrix):
+        d.update(kind="ell", k=int(dev.k))
+    elif isinstance(dev, BSRMatrix):
+        d.update(kind="bsr", bm=int(dev.bm), bn=int(dev.bn))
+    else:
+        raise TypeError(type(dev).__name__)
+    return d
+
+
+def export_jax_hierarchy(hier, dia=False, host=None):
+    """(levels, coarse_Ainv) of a JAX Hierarchy, as float64 numpy arrays and
+    dicts for amg_tpu_torch.convert.hierarchy_from_arrays. With dia=True (a
+    hierarchy of build_dia_structured_hierarchy, whose CPU levels are
+    VarStencilOperators) the levels become the port's DIA operators, and
+    masked transfers carry their masks. A generic (classical) hierarchy needs
+    its HostHierarchy `host`: each ELL/BSR matrix goes across as the host
+    CSR matrix it was built from, with its device format (ELL width, BSR
+    tile), and block smoothers carry their block inverses."""
     from amg_tpu.setup.structured import (
         MaskedTransfer,
         StructuredRestrict,
@@ -27,19 +81,26 @@ def export_jax_hierarchy(hier, dia=False):
     )
     from amg_tpu.sparse.stencil import StencilOperator
 
-    def f64(a):
-        return np.asarray(a, dtype=np.float64)
-
     levels = []
-    for lv in hier.levels:
+    for k, lv in enumerate(hier.levels):
         A = lv.A
         if isinstance(A, StencilOperator):
-            Ad = {"kind": "stencil", "weights": f64(A.weights)}
+            Ad = {"kind": "stencil", "weights": f64(A.weights),
+                  "offsets": A.offsets, "grid_shape": A.grid_shape}
         elif isinstance(A, VarStencilOperator):
-            Ad = {"kind": "dia" if dia else "var", "coeffs": f64(A.coeffs)}
+            Ad = {"kind": "dia" if dia else "var", "coeffs": f64(A.coeffs),
+                  "offsets": A.offsets, "grid_shape": A.grid_shape}
         else:
-            raise TypeError(type(A).__name__)
-        Ad.update(offsets=A.offsets, grid_shape=A.grid_shape)
+            Ad = _matrix(A, host.levels[k].A)
+        sm = {"scale": f64(lv.sm.scale), "inv_wscale": f64(lv.sm.inv_wscale), "w": f64(lv.sm.w)}
+        if lv.sm.block_inv is not None:
+            sm.update(block_inv=f64(lv.sm.block_inv), block_inv_bwd=f64(lv.sm.block_inv_bwd))
+        if host is not None:
+            hl = host.levels[k]
+            levels.append({"A": Ad, "sm": sm, "transfer": None,
+                           **{name: _matrix(getattr(lv, name), getattr(hl, name))
+                              for name in GENERIC_MATRICES}})
+            continue
         transfer = None
         if isinstance(lv.R, MaskedTransfer):
             assert isinstance(lv.R.inner, StructuredRestrict)
@@ -49,22 +110,18 @@ def export_jax_hierarchy(hier, dia=False):
         elif lv.R is not None:
             assert isinstance(lv.R, StructuredRestrict)
             transfer = {"fine_shape": lv.R.fine_shape, "coarse_shape": lv.R.coarse_shape}
-        levels.append({
-            "A": Ad,
-            "sm": {"scale": f64(lv.sm.scale), "inv_wscale": f64(lv.sm.inv_wscale),
-                   "w": f64(lv.sm.w)},
-            "transfer": transfer,
-        })
+        levels.append({"A": Ad, "sm": sm, "transfer": transfer})
     return levels, f64(hier.coarse_Ainv)
 
 
-def port_hierarchy(jax_hier, dtype=None, dia=False):
-    """The port's CPU Hierarchy carried across from a JAX hierarchy."""
+def port_hierarchy(jax_hier, dtype=None, dia=False, host=None):
+    """The port's CPU Hierarchy carried across from a JAX hierarchy (a
+    generic one with its HostHierarchy `host`)."""
     import torch
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
 
-    levels, ainv = export_jax_hierarchy(jax_hier, dia=dia)
+    levels, ainv = export_jax_hierarchy(jax_hier, dia=dia, host=host)
     return hierarchy_from_arrays(
         levels, ainv, dtype=dtype or torch.float64, device="cpu"
     )
