@@ -26,9 +26,10 @@ matrices as CSR arrays in the format they take on the device,
     | {"kind": "bsr", "indptr", "indices", "data", "shape", "bm", "bn"}
 
 (ELL rows padded to k, by default the widest row), for "A" (level 0 may be
-any of the operator kinds above) and for "P" and "R" (each None or a
-matrix), and block smoothers' "sm" also holds "block_inv" and
-"block_inv_bwd" (nblocks, bs, bs).
+any of the operator kinds above) and for "P", "R" and the additive
+transfers "P_s", "R_s", "P_id", "R_id" (each absent, None or a matrix), and
+block smoothers' "sm" also holds "block_inv" and "block_inv_bwd" (nblocks,
+bs, bs).
 
 plus the dense `coarse_Ainv` of the coarsest level.
 """
@@ -114,6 +115,8 @@ def hierarchy_from_arrays(levels, coarse_Ainv, dtype=torch.float64, device=None)
             Level(
                 A=operator_from_arrays(lv["A"], dtype, device), P=P, R=R,
                 sm=smoother_data_from_arrays(lv["sm"], dtype, device),
+                **{name: matrix_from_arrays(lv.get(name), dtype, device)
+                   for name in ("P_s", "R_s", "P_id", "R_id")},
             )
         )
     return Hierarchy(levels=tuple(out), coarse_Ainv=_tensor(coarse_Ainv, dtype, device))

@@ -9,12 +9,13 @@ per-level smoother weights.
 
 Device phase (`device_hierarchy`): every level's A, P and R become float64
 array dicts in the format `_format_converter` picks (ELL, or the reference's
-cost-model BSR tile; level 0 keeps its stencil or DIA operator), which
-`convert.hierarchy_from_arrays` puts on the device in the solve dtype; the
-coarsest A becomes a dense inverse applied by one matmul. The host-only
-transfers (smoothed, injection, AFACj ideal) stay on the host until a
-cycle of the port reads them. `Level`/`Hierarchy` hold the device side of
-both this builder and the structured ones (`setup/structured.py`).
+cost-model BSR tile; level 0 keeps its stencil or DIA operator), and so do
+the additive cycles' transfers (smoothed P~/R~, AFACj ideal P_id/R_id);
+`convert.hierarchy_from_arrays` puts them on the device in the solve dtype;
+the coarsest A becomes a dense inverse applied by one matmul. The injection
+restriction R_inj stays on the host (only the multi-device paths read it).
+`Level`/`Hierarchy` hold the device side of both this builder and the
+structured ones (`setup/structured.py`).
 """
 
 from __future__ import annotations
@@ -77,13 +78,19 @@ class HierarchyParams:
 
 class Level(NamedTuple):
     """One device-side level. P maps level k+1 -> k; R maps k -> k+1 (both
-    None on the coarsest level). The multadd and AFACj transfer fields of
-    the reference's Level arrive with those cycles."""
+    None on the coarsest level). The additive cycles' transfers are None
+    where the host built none (the structured builders build none): the
+    smoothed P~/R~ of the multadd chains and the AFACj ideal interpolant
+    P_id = [-D_ff^-1 A_fc; I] with its transpose R_id."""
 
     A: Any  # StencilOperator | VarStencilOperator | DiaKernelOperator | ELLMatrix | BSRMatrix
     P: Optional[Any]  # StructuredProlong | MaskedTransfer | ELLMatrix | BSRMatrix
     R: Optional[Any]
     sm: SmootherData
+    P_s: Optional[Any] = None  # ELLMatrix | BSRMatrix
+    R_s: Optional[Any] = None
+    P_id: Optional[Any] = None
+    R_id: Optional[Any] = None
 
 
 class Hierarchy(NamedTuple):
@@ -250,6 +257,11 @@ def build_host_hierarchy(A: CSRMatrix, params: HierarchyParams) -> HostHierarchy
     return hh
 
 
+# the host transfers that go to the device; R_inj stays on the host (only
+# the multi-device paths read it)
+DEVICE_TRANSFERS = ("P", "R", "P_s", "R_s", "P_id", "R_id")
+
+
 def _csr_dict(m: CSRMatrix, kind: str, **extra) -> dict:
     return {"kind": kind, "indptr": m.indptr, "indices": m.indices, "data": m.data,
             "shape": tuple(m.shape), **extra}
@@ -330,7 +342,8 @@ def device_hierarchy(
               "sm": make_smoother_data(hl.A, params.smoother, w=hl.weight,
                                        block_size=params.block_size,
                                        jgs_weight=params.jgs_weight)}
-        lv["P"], lv["R"] = convert(hl.P), convert(hl.R)
+        for name in DEVICE_TRANSFERS:
+            lv[name] = convert(getattr(hl, name))
         levels.append(lv)
     coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
     hh.arrays = (levels, coarse_Ainv)

@@ -16,9 +16,7 @@ uses the fixed omega = 2/(1+sqrt(1-mu^-2)).
 The three estimators draw their start vectors from numpy (`default_rng`), as
 the reference's do, so both packages start from the same vectors. The
 reference runs the power iterations as one jitted loop; here they are host
-loops over device operations that read the estimate once at the end. The
-reference's `range_start` (the semidefinite extended systems) and
-`operand` (sharded operators) arrive with those paths.
+loops over device operations that read the estimate once at the end.
 """
 
 from __future__ import annotations
@@ -85,13 +83,24 @@ def estimate_cycle_eigs(
     dtype,
     num_iters: int = 20,
     seed: int = 0,
+    range_start: bool = False,
+    operand=None,
     device="cpu",
 ) -> ChebyCoeffs:
     """Eigenvalue bounds of M^-1 A by power iteration, then a shifted power
-    iteration for the smallest eigenvalue."""
+    iteration for the smallest eigenvalue.
+
+    range_start: start both iterations inside range(op) (one extra apply
+    each), so that the second finds the smallest nonzero eigenvalue of a
+    singular operator (the semidefinite extended BPX system).
+    operand: passed as apply_MinvA's first argument, apply_MinvA(operand, u)."""
+    if operand is not None:
+        op, apply_MinvA = apply_MinvA, (lambda u: op(operand, u))
     rng = np.random.default_rng(seed)
     u1 = _start(rng.random(n), dtype, device)
     u2 = _start(rng.random(n), dtype, device)
+    if range_start:
+        u1, u2 = apply_MinvA(u1), apply_MinvA(u2)
     u, lam_max = u1, torch.ones((), dtype=dtype, device=device)
     for _ in range(num_iters):
         u = u / torch.linalg.norm(u)

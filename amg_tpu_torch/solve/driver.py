@@ -43,6 +43,14 @@ class SolveResult(NamedTuple):
         return h[~np.isnan(h)].tolist()
 
 
+def nan_padded(values, length: int, dtype, device) -> torch.Tensor:
+    """A (length,) history on `device` holding `values` (host floats, one
+    host read each), NaN after them."""
+    h = torch.full((length,), float("nan"), dtype=torch.float64)
+    h[: len(values)] = torch.tensor(values, dtype=torch.float64)
+    return h.to(device=device, dtype=dtype)
+
+
 def _check_device(hier, device) -> torch.device:
     device = resolve_device(device)
     if hier.device != device:

@@ -1,0 +1,209 @@
+"""The extended-system BPX solver on one device: the whole multilevel
+operator as one system (counterpart of amg_tpu/solve/extended.py).
+
+With Pchain_k = P_0 ... P_{k-1} (level k -> level 0) and
+C = [Pchain_0 | ... | Pchain_{L-1}], the extended system is the Galerkin
+product over the concatenated chains,
+
+    AA = C^T A_0 C,   AA_{l,m} = Pchain_l^T A_0 Pchain_m,
+
+assembled as one ELL matrix (explicit mode) or applied through the chains
+(implicit mode). `ext_solve` runs Chebyshev-weighted Jacobi on
+AA U = C^T r0 and monitors the true fine residual of x = x0 + C U; with
+async_fire_prob < 1 each level block updates only when it fires, from a
+stale snapshot of U, under a damped Richardson weight.
+
+The reference runs the loop as one jitted while loop with jax.random
+draws; here it is a host loop that reads one device scalar a step, with
+the (L,) firing and read uniforms from an injectable draw source
+(`ExtDrawSource`; by default a CPU torch.Generator).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Protocol, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from amg_tpu_torch.solve.accel import ChebyCoeffs, cheby_init, cheby_update
+from amg_tpu_torch.solve.driver import _check_device, nan_padded
+from amg_tpu_torch.sparse.csr import CSRMatrix
+from amg_tpu_torch.sparse.ell import ELLMatrix, ell_from_csr
+
+
+@dataclass
+class ExtendedSystem:
+    pchains: Tuple[ELLMatrix, ...]  # n0 x n_k, the level-k chain prolongation
+    rchains: Tuple[ELLMatrix, ...]  # n_k x n0, their transposes
+    inv_wdiag: torch.Tensor  # (N,) w / diag(AA): the Jacobi scaling
+    AA: Optional[ELLMatrix]  # explicit mode only
+    offsets: Tuple[int, ...]  # block offsets, len L + 1
+
+
+def build_extended_system(
+    hh, params, explicit: bool = False, weight: Optional[float] = None, device=None
+) -> ExtendedSystem:
+    """The extended system of a host hierarchy, on `device` (None: the CUDA
+    device; raises without one) in params.dtype."""
+    from amg_tpu_torch.dtypes import resolve_device
+
+    device = resolve_device(device)
+    dtype = params.dtype
+    L = hh.num_levels
+    A0 = hh.levels[0].A.to_scipy()
+    chains = [sp.identity(hh.levels[0].A.n_rows, format="csr")]
+    for k in range(L - 1):
+        chains.append((chains[-1] @ hh.levels[k].P.to_scipy()).tocsr())
+
+    def ell(m):
+        return ell_from_csr(CSRMatrix.from_scipy(m), dtype=dtype, device=device)
+
+    pchains = tuple(ell(c) for c in chains)
+    rchains = tuple(ell(c.T.tocsr()) for c in chains)
+    offsets = [0]
+    for lv in hh.levels:
+        offsets.append(offsets[-1] + lv.A.n_rows)
+    # diag(AA_kk) = diag(A_k); the weight per level from the hierarchy
+    diags = []
+    for lv in hh.levels:
+        d = lv.A.diagonal()
+        d = np.where(d == 0.0, 1.0, d)
+        diags.append((weight if weight is not None else lv.weight) / d)
+    inv_wdiag = torch.from_numpy(np.concatenate(diags)).to(device=device, dtype=dtype)
+    AA = None
+    if explicit:
+        AA_sp = sp.bmat([[(chains[l].T @ A0 @ chains[m]).tocsr() for m in range(L)]
+                         for l in range(L)], format="csr")
+        AA_sp.data[np.abs(AA_sp.data) < 1e-300] = 0.0
+        AA_sp.eliminate_zeros()
+        AA = ell(AA_sp)
+    return ExtendedSystem(pchains=pchains, rchains=rchains, inv_wdiag=inv_wdiag, AA=AA,
+                          offsets=tuple(offsets))
+
+
+def ext_prolong(ext: ExtendedSystem, U: torch.Tensor) -> torch.Tensor:
+    """x = C U = sum_k Pchain_k U_k (a fine-grid vector)."""
+    x = None
+    for k, pc in enumerate(ext.pchains):
+        c = pc @ U[ext.offsets[k]: ext.offsets[k + 1]]
+        x = c if x is None else x + c
+    return x
+
+
+def ext_restrict(ext: ExtendedSystem, y: torch.Tensor) -> torch.Tensor:
+    """C^T y: the restrict chains of a fine-grid vector, concatenated."""
+    return torch.cat([r @ y for r in ext.rchains])
+
+
+def ext_matvec(ext: ExtendedSystem, A0, U: torch.Tensor) -> torch.Tensor:
+    """AA @ U: the explicit ELL, or through the chains."""
+    if ext.AA is not None:
+        return ext.AA @ U
+    return ext_restrict(ext, A0 @ ext_prolong(ext, U))
+
+
+class ExtSolveResult(NamedTuple):
+    x: torch.Tensor
+    iters: int
+    rel_resnorm: torch.Tensor
+    history: torch.Tensor  # relative residual per step, NaN-padded
+
+    def history_list(self):
+        h = self.history.detach().cpu().numpy()
+        return h[~np.isnan(h)].tolist()
+
+
+class ExtDrawSource(Protocol):
+    def step(self, L: int) -> Tuple[np.ndarray, np.ndarray]:
+        """This step's (L,) firing uniforms and (L,) read uniforms."""
+
+
+class GeneratorExtDraws:
+    """The production draw source: a CPU torch.Generator seeded from `seed`
+    (the draws are per block, so the host knows who fires)."""
+
+    def __init__(self, seed: int = 0):
+        self._gen = torch.Generator().manual_seed(seed)
+
+    def step(self, L):
+        u = torch.rand(2, L, generator=self._gen, dtype=torch.float64).numpy()
+        return u[0], u[1]
+
+
+def ext_solve(
+    hier,
+    ext: ExtendedSystem,
+    b,
+    x0: Optional[torch.Tensor] = None,
+    tol: float = 1e-8,
+    max_cycles: int = 300,
+    cheby_coeffs: Optional[ChebyCoeffs] = None,
+    async_fire_prob: float = 1.0,
+    sim_read_delay: int = 0,
+    draws: Optional[ExtDrawSource] = None,
+    seed: int = 0,
+    device=None,
+) -> ExtSolveResult:
+    """Solve A x = b by (async) Chebyshev-weighted Jacobi on the extended
+    system, on `device` (None: the CUDA device; raises without one; the
+    hierarchy and `ext` must live there). draws=None takes
+    GeneratorExtDraws(seed)."""
+    device = _check_device(hier, device)
+    b = torch.as_tensor(b).to(device=device, dtype=hier.dtype)
+    x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
+    if draws is None:
+        draws = GeneratorExtDraws(seed)
+    A0 = hier.levels[0].A
+    L = len(ext.pchains)
+    N = ext.offsets[-1]
+    sizes = torch.tensor(np.diff(ext.offsets), device=device)
+    W = sim_read_delay + 1
+    async_on = async_fire_prob < 1.0
+
+    r0 = b - A0 @ x0
+    r0norm = torch.linalg.norm(r0)
+    safe_r0 = torch.where(r0norm == 0.0, torch.ones_like(r0norm), r0norm)
+    FF = ext_restrict(ext, r0)
+    U = torch.zeros(N, dtype=b.dtype, device=device)
+    ring = U.unsqueeze(0).repeat(W, 1) if async_on else None  # the stale snapshots
+    ch = cheby_init(N, b.dtype, device)
+    x = x0
+    relnorm = torch.full((), float("inf"), dtype=b.dtype, device=device)
+    hist = [1.0]
+    k, rel = 0, float("inf")
+    while k < max_cycles and rel > tol:
+        u_fire, u_read = draws.step(L)
+        if async_on:
+            fire = u_fire < async_fire_prob
+            low = max(k - sim_read_delay, 0)
+            col = np.round(low + u_read * (k - low)).astype(np.int64)
+            U_read = torch.cat([ring[col[l] % W, ext.offsets[l]: ext.offsets[l + 1]]
+                                for l in range(L)])
+        else:
+            U_read = U
+        du = ext.inv_wdiag * (FF - ext_matvec(ext, A0, U_read))
+        if cheby_coeffs is not None:
+            if async_on:
+                # the global recurrence does not hold under partial, stale
+                # updates: the damped stationary Richardson weight instead
+                du = (0.6 * 2.0 / (cheby_coeffs.alpha + cheby_coeffs.beta)) * du
+            else:
+                ch = cheby_update(ch, du, cheby_coeffs)
+                du = ch.d
+        if async_on:
+            rows = torch.repeat_interleave(torch.from_numpy(fire).to(device), sizes)
+            U = torch.where(rows, U + du, U)
+        else:
+            U = U + du
+        x = x0 + ext_prolong(ext, U)
+        relnorm = torch.linalg.norm(b - A0 @ x) / safe_r0
+        if async_on:
+            ring[(k + 1) % W].copy_(U)
+        k += 1
+        rel = float(relnorm)  # the step's one host read
+        hist.append(rel)
+    return ExtSolveResult(x=x, iters=k, rel_resnorm=relnorm,
+                          history=nan_padded(hist, max_cycles + 1, b.dtype, device))

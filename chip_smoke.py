@@ -82,7 +82,26 @@ Phases (any failure exits non-zero and prints no result line):
      with Chebyshev after cheby_setup(num_iters=20), and PCG over an
      L1-Jacobi V(1,1), each to 1e-8 in the JAX package's cycle count
      (GENERIC_REF, from tools/torch_generic_reference.py);
- 11. timing with CUDA events: the V(1,1) per-cycle time of
+ 11. the additive and asynchronous solvers on the generic hierarchy, no
+     custom kernel on them (launch counts logged): on phase 10's 96^3
+     float64 hierarchy, the device bytes of the additive transfers (P~,
+     R~, P_id, R_id) and the async state; sync MULTADD (smoothed transfers,
+     Chebyshev from cheby_setup) in the JAX package's cycle count, true
+     residual <= 1e-8, history[:5] the reference's to rtol 1e-10; FULL
+     async_multadd (Richardson, the runner's damping) on the port's own
+     generators to 1e-8 within 1000 steps, true residual <= 1.1e-8, steps
+     within +-25% of the reference's run, its grid waits; the host clock,
+     device busy time, events and idle share per async step in float64
+     and float32 and per sync cycle. At 48^3: sync multadd, afacx, bpx and
+     mult_multadd in the reference's counts and afacj's 40 cycles at its
+     history (rtol 1e-8; it stalls, ROADMAP F7); SEMI async_multadd, the
+     reference's draws replayed: its steps, history (rtol 1e-8) and grid
+     waits; FULL on the port's generators for seeds 0-4: the mean step
+     count within the reference's five keys' range widened by 10%;
+     async_smooth (southwell_exp) and the async implicit extended system,
+     the reference's draws replayed: block updates / steps and histories
+     (rtol 1e-8). The reference's numbers and draws: ASYNC_REF;
+ 12. timing with CUDA events: the V(1,1) per-cycle time of
      `struct_timed_cycles` (slope between two cycle counts) and K1, K3, K4
      at their 126^3 shapes beside their plain versions, their DRAM byte
      bound and, for K1, the `torch.nn.functional.conv3d` yardstick; K3's
@@ -106,6 +125,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1248,6 +1268,357 @@ def spmv_timing(name, csr, device, rng):
     return rows
 
 
+# the additive and asynchronous solvers on the generic hierarchy: the JAX
+# package's own results on the CPU in float64, and the draws of its SEMI,
+# async_smooth and extended-system runs
+# (`JAX_PLATFORMS=cpu python3 tools/torch_async_reference.py`)
+ASYNC_REF = "tools/torch_async_reference.json"
+
+
+def async_options(hier, cfg, cheby_setup, async_type="full", sim_read_delay=4,
+                  accel="richardson", comm_every=1, cheby_grid=0, **kw):
+    """The AsyncConfig keywords that the JAX package's runner derives for an
+    async additive solve (amg_tpu/utils/runner.py:492-570): Richardson by
+    default; mu and delta from cheby_setup(num_iters=20) on the MULTADD cfg,
+    delta damped 0.4x under FULL staleness, 0.6x under SEMI and not at all
+    at delay 0; with comm_every > 1 the scalar omega instead."""
+    kw = dict(kw, async_type=async_type, sim_read_delay=sim_read_delay, comm_every=comm_every)
+    if accel not in ("cheby", "richardson"):
+        return kw
+    coeffs = cheby_setup(hier, cfg, num_iters=20)
+    if comm_every > 1:
+        return dict(kw, omega=0.5 * 2.0 / (coeffs.alpha + coeffs.beta))
+    damp = 0.4 if async_type == "full" else 0.6
+    if sim_read_delay == 0:
+        damp = 1.0
+    return dict(kw, accel=accel, cheby_grid=cheby_grid, cheby_mu=coeffs.mu,
+                cheby_delta=coeffs.delta * damp)
+
+
+class RecordedAsyncDraws:
+    """async_solve's draws of one SEMI run of the JAX package, replayed (the
+    DrawSource protocol of amg_tpu_torch/solve/async_sim.py)."""
+
+    def __init__(self, rec):
+        self.rec, self.i = rec, -1
+
+    def wait_uniforms(self, L):
+        raise RuntimeError("no wait-counter draws are recorded")
+
+    def step(self, L):
+        self.i += 1
+        return np.array(self.rec["fire"][self.i]), np.array(self.rec["perm"][self.i])
+
+    def read_scalar(self, lvl):
+        return self.rec["reads"][self.i][lvl]
+
+    def read_rows(self, lvl, n, dtype, device):
+        raise RuntimeError("no FULL-mode draws are recorded")
+
+
+class RecordedSmoothDraws:
+    """async_smooth_solve's (B,) firing uniforms of the JAX package's run."""
+
+    def __init__(self, rec):
+        self.rec, self.i = rec, -1
+
+    def step(self, B, dtype, device):
+        import torch
+
+        self.i += 1
+        return torch.tensor(self.rec[self.i], dtype=dtype, device=device)
+
+
+class RecordedExtDraws:
+    """ext_solve's (L,) firing and read uniforms of the JAX package's run."""
+
+    def __init__(self, rec):
+        self.rec, self.i = rec, -1
+
+    def step(self, L):
+        self.i += 1
+        return np.array(self.rec["fire"][self.i]), np.array(self.rec["read"][self.i])
+
+
+def additive_cfg(name):
+    """The CLI defaults of each additive solver: L1-Jacobi, smoothed
+    transfers for multadd and mult_multadd."""
+    from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
+
+    return CycleConfig(cycle=CycleType(name),
+                       use_smoothed_transfers=name in ("multadd", "mult_multadd"))
+
+
+def ell_bytes(m):
+    return m.vals.nbytes + m.cols.nbytes
+
+
+def async_timing(hier, cfg, acfg, b, device, k0=10, k1=30):
+    """Host clock per async step (best-of-3 slope between k0 and k1 steps,
+    tol 0: every step runs, with its one host read), and the device's busy
+    time, events and rows per step (profiled slope between k0 and k0 + 10).
+    Every run draws from GeneratorDraws(0), so the runs share their first
+    steps."""
+    import torch
+
+    from amg_tpu_torch.solve.async_sim import async_solve
+
+    def solve_k(k):
+        return async_solve(hier, cfg, acfg, b, seed=0, tol=0.0, max_cycles=k, device=device)
+
+    def run(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve_k(k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    host_ms, s0, s1 = host_slope_ms(run, k0, k1)
+    busy, events, rows = device_per_cycle(solve_k, k0, k0 + 10)
+    return {"host_ms_per_step": host_ms, "device_busy_ms_per_step": busy,
+            "events_per_step": events,
+            "idle_share": 1.0 - busy / host_ms if host_ms > 0 else None,
+            "samples_s": [s0, s1], "rows": [(ms, nev, name[:100]) for ms, nev, name in rows[:8]]}
+
+
+def additive_phase_96(prob, hh, hier64, hier32, b_np, ref, device):
+    """The additive and async solvers on the generic phase's 96^3
+    hierarchy: sync MULTADD under Chebyshev at the reference's count and
+    history, async_multadd FULL Richardson on the port's own generators in
+    the reference's corridor; their timings. Returns (record, failures)."""
+    import torch
+
+    from amg_tpu_torch.solve.async_sim import AsyncConfig, async_solve
+    from amg_tpu_torch.solve.driver import cheby_setup, solve
+
+    fails, rec = [], {}
+    new_b = {name: sum(ell_bytes(getattr(lv, name)) for lv in hier64.levels
+                       if getattr(lv, name) is not None)
+             for name in ("P", "R", "P_s", "R_s", "P_id", "R_id")}
+    n, L = prob.n, hier64.num_levels
+    state_b = {"ring (W = 5)": 5 * n * 8, "FULL last reads (int32)": L * n * 4}
+    log(f"additive {GENERIC_N}^3: device bytes of the transfers (float64 ELL) "
+        f"{ {k: round(v / 1e6, 2) for k, v in new_b.items()} } MB; async state "
+        f"{ {k: round(v / 1e6, 2) for k, v in state_b.items()} } MB")
+    rec.update(transfer_bytes=new_b, async_state_bytes=state_b)
+
+    cfg = additive_cfg("multadd")
+    b64 = torch.from_numpy(b_np).to(device)
+    t0 = time.perf_counter()
+    coeffs = cheby_setup(hier64, cfg, num_iters=20, device=device)
+    torch.cuda.synchronize()
+    cheby_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(hier64, cfg, b64, tol=1e-8, max_cycles=200, accel="cheby", cheby_coeffs=coeffs,
+                device=device)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    hist = res.history_list()
+    true_rel = true_rel_residual(prob, res.x.cpu().numpy(), b_np)
+    want = ref["96"]["multadd"]
+    log(f"additive {GENERIC_N}^3 sync MULTADD (smoothed transfers, Chebyshev; cheby_setup "
+        f"{cheby_s:.2f} s): cycles {res.iters} (reference {want['iters']}), rel_res "
+        f"{float(res.rel_resnorm):.4e}, true rel_res {true_rel:.4e}, {solve_s:.3f} s; "
+        f"launches {counts}")
+    log("  history[:5]", [float(f"{h:.6e}") for h in hist[:5]],
+        "reference", [float(f"{h:.6e}") for h in want["history"][:5]])
+    rec["sync multadd"] = {"iters": res.iters, "rel_res": float(res.rel_resnorm),
+                           "true_rel_res": true_rel, "solve_s": solve_s,
+                           "cheby_setup_s": cheby_s, "counts": counts,
+                           "coeffs": list(coeffs)}
+    if res.iters != want["iters"] or not true_rel <= 1e-8:
+        fails.append("96^3 sync multadd: not the reference's cycles or true residual > 1e-8")
+    if not np.allclose(hist[:5], want["history"][:5], rtol=1e-10, atol=1e-14):
+        fails.append("96^3 sync multadd: history[:5] differs from the reference's")
+
+    def run_sync(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve(hier64, cfg, b64, tol=0.0, max_cycles=k, accel="cheby", cheby_coeffs=coeffs,
+              device=device)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    host_ms, _, _ = host_slope_ms(run_sync, 3, 8)
+    busy, events, _ = device_per_cycle(
+        lambda k: solve(hier64, cfg, b64, tol=0.0, max_cycles=k, accel="cheby",
+                        cheby_coeffs=coeffs, device=device), 3, 6)
+    log(f"  sync MULTADD cycle: host clock {host_ms:.4f} ms, device busy {busy:.4f} ms in "
+        f"{events:.1f} events, idle share {1.0 - busy / host_ms:.3f}")
+    rec["sync multadd"].update(host_ms_per_cycle=host_ms, device_busy_ms_per_cycle=busy,
+                               events_per_cycle=events)
+
+    acfg = AsyncConfig(**async_options(hier64, cfg, lambda *a, **k: coeffs))
+    want = ref["96"]["full richardson"]
+    lo, hi = math.floor(0.75 * want["iters"]), math.ceil(1.25 * want["iters"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    ares = async_solve(hier64, cfg, acfg, b64, seed=0, tol=1e-8, max_cycles=1000, device=device)
+    torch.cuda.synchronize()
+    async_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    true_rel = true_rel_residual(prob, ares.x.cpu().numpy(), b_np)
+    gw = ares.grid_wait.summary()
+    log(f"additive {GENERIC_N}^3 async_multadd FULL Richardson (the port's generators, seed 0): "
+        f"steps {ares.iters} (reference {want['iters']} with its own draws; corridor "
+        f"{lo}-{hi}), rel_res {float(ares.rel_resnorm):.4e}, true rel_res {true_rel:.4e}, "
+        f"{async_s:.3f} s; peak device memory over the hierarchy {peak / 1e6:.1f} MB; "
+        f"launches {counts}")
+    log(f"  grid wait: mean {[round(v, 3) for v in gw['mean']]}, min {gw['min']}, max "
+        f"{gw['max']}, corrections {gw['num_correct']} (reference's run: "
+        f"{[round(v, 3) for v in want['grid_wait']['mean']]}, {want['grid_wait']['num_correct']})")
+    rec["async full"] = {"iters": ares.iters, "rel_res": float(ares.rel_resnorm),
+                         "true_rel_res": true_rel, "solve_s": async_s, "grid_wait": gw,
+                         "peak_bytes": peak, "counts": counts}
+    if not (float(ares.rel_resnorm) <= 1e-8 and true_rel <= 1.1e-8 and lo <= ares.iters <= hi):
+        fails.append("96^3 async_multadd FULL: not converged within the reference's corridor")
+
+    for dn, hier, b in (("float64", hier64, b64), ("float32", hier32, b64.float())):
+        t = async_timing(hier, cfg, acfg, b, device)
+        log(f"  async step {dn}: host clock {t['host_ms_per_step']:.4f} ms, device busy "
+            f"{t['device_busy_ms_per_step']:.4f} ms in {t['events_per_step']:.1f} events, "
+            f"idle share {t['idle_share']:.3f}")
+        for ms, nev, name in t["rows"]:
+            log(f"    {ms:.4f} ms  {nev:7.1f} launches  {name}")
+        rec[f"async step {dn}"] = t
+    return rec, fails
+
+
+def additive_phase_48(ref, device):
+    """At 48^3: the sync additive cycles at the reference's counts (AFACj's
+    first 40 cycles at its history), SEMI async_multadd with the
+    reference's draws replayed, FULL on the port's generators over five
+    seeds, async_smooth and the async implicit extended system with the
+    reference's draws. Returns (record, failures)."""
+    import torch
+
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.solve.accel import estimate_cycle_eigs
+    from amg_tpu_torch.solve.async_sim import AsyncConfig, async_solve
+    from amg_tpu_torch.solve.async_smooth import (
+        AsyncSmoothConfig,
+        async_smooth_solve,
+        block_neighbor_mask,
+    )
+    from amg_tpu_torch.solve.driver import cheby_setup, solve
+    from amg_tpu_torch.solve.extended import build_extended_system, ext_matvec, ext_solve
+
+    t_phase = time.perf_counter()
+    fails, rec = [], {}
+    ref = ref["48"]
+    prob = laplacian_3d_27pt(GENERIC_SIDE)
+    hh, hier = build_hierarchy(prob.A, HierarchyParams(), fine_stencil=prob.stencil,
+                               device=device)
+    if hh.stats()["n"] != ref["level_n"] or hh.stats()["nnz"] != ref["level_nnz"]:
+        fails.append("additive 48^3: the hierarchy differs from the reference's")
+    b_np = np.random.default_rng(0).random(prob.n)
+    b = torch.from_numpy(b_np).to(device)
+
+    def close(got, want, rtol):
+        return len(got) == len(want) and np.allclose(got, want, rtol=rtol, atol=1e-14)
+
+    for name in ("multadd", "afacx", "bpx", "mult_multadd", "afacj"):
+        cfg = additive_cfg(name)
+        accel = None if name == "mult_multadd" else "cheby"
+        coeffs = cheby_setup(hier, cfg, num_iters=20, device=device) if accel else None
+        want = ref["afacj 40" if name == "afacj" else name]
+        t0 = time.perf_counter()
+        res = solve(hier, cfg, b, tol=1e-8, max_cycles=40 if name == "afacj" else 200,
+                    accel=accel, cheby_coeffs=coeffs, device=device)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        hist = res.history_list()
+        log(f"additive {GENERIC_SIDE}^3 sync {name}: cycles {res.iters} (reference "
+            f"{want['iters']}), rel_res {float(res.rel_resnorm):.4e}, {s:.3f} s")
+        rec[name] = {"iters": res.iters, "rel_res": float(res.rel_resnorm), "solve_s": s}
+        if res.iters != want["iters"]:
+            fails.append(f"48^3 sync {name}: not the reference's cycles")
+        if name == "afacj" and not close(hist, want["history"], 1e-8):
+            fails.append("48^3 afacj: its 40 cycles' history differs from the reference's")
+
+    cfg = additive_cfg("multadd")
+    coeffs = cheby_setup(hier, cfg, num_iters=20, device=device)
+    want = ref["semi richardson"]
+    acfg = AsyncConfig(**async_options(hier, cfg, lambda *a, **k: coeffs, async_type="semi"))
+    t0 = time.perf_counter()
+    res = async_solve(hier, cfg, acfg, b, draws=RecordedAsyncDraws(want["draws"]), tol=1e-8,
+                      max_cycles=200, device=device)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    gw = res.grid_wait.summary()
+    log(f"additive {GENERIC_SIDE}^3 async_multadd SEMI, the reference's draws: steps "
+        f"{res.iters} (reference {want['iters']}), rel_res {float(res.rel_resnorm):.4e}, "
+        f"{s:.3f} s; grid wait equal to the reference's: {gw == want['grid_wait']}")
+    rec["semi replay"] = {"iters": res.iters, "rel_res": float(res.rel_resnorm), "solve_s": s,
+                          "grid_wait": gw}
+    if res.iters != want["iters"] or not close(res.history_list(), want["history"], 1e-8) \
+            or gw != want["grid_wait"]:
+        fails.append("48^3 SEMI replay: not the reference's steps, history or grid waits")
+
+    acfg = AsyncConfig(**async_options(hier, cfg, lambda *a, **k: coeffs))
+    keys = list(ref["full richardson iters by key"].values())
+    lo, hi = math.floor(0.9 * min(keys)), math.ceil(1.1 * max(keys))
+    steps = []
+    t0 = time.perf_counter()
+    for seed in range(5):
+        res = async_solve(hier, cfg, acfg, b, seed=seed, tol=1e-8, max_cycles=1000,
+                          device=device)
+        steps.append(res.iters if float(res.rel_resnorm) <= 1e-8 else None)
+    s = time.perf_counter() - t0
+    mean = np.mean(steps) if None not in steps else None
+    log(f"additive {GENERIC_SIDE}^3 async_multadd FULL, the port's generators, seeds 0-4: steps "
+        f"{steps}, mean {mean} (the reference's keys 0-4: {keys}; corridor {lo}-{hi}), {s:.3f} s")
+    rec["full seeds"] = {"steps": steps, "reference": keys, "solve_s": s}
+    if mean is None or not lo <= mean <= hi:
+        fails.append("48^3 FULL async over five seeds: the mean step count is off the corridor")
+
+    want = ref["smooth southwell_exp"]
+    B = len(want["block_updates"])
+    t0 = time.perf_counter()
+    sres = async_smooth_solve(hier.levels[0].A, hier.levels[0].sm, AsyncSmoothConfig(num_blocks=B),
+                              block_neighbor_mask(prob.A, B), b,
+                              draws=RecordedSmoothDraws(want["draws"]), tol=0.0,
+                              max_cycles=want["iters"], device=device)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    bu = sres.block_updates.tolist()
+    log(f"additive {GENERIC_SIDE}^3 async_smooth southwell_exp, the reference's draws: "
+        f"{sres.iters} steps to rel_res {float(sres.rel_resnorm):.4e}, block updates {bu} "
+        f"(reference {want['block_updates']}), {s:.3f} s")
+    rec["async_smooth replay"] = {"iters": sres.iters, "rel_res": float(sres.rel_resnorm),
+                                  "block_updates": bu, "solve_s": s}
+    if bu != want["block_updates"] or not close(sres.history_list(), want["history"], 1e-8):
+        fails.append("48^3 async_smooth replay: not the reference's block updates or history")
+
+    want = ref["async_implicit_ext_bpx"]
+    t0 = time.perf_counter()
+    ext = build_extended_system(hh, HierarchyParams(), explicit=False, device=device)
+    A0 = hier.levels[0].A
+    ecoeffs = estimate_cycle_eigs(
+        lambda op, u: op[0].inv_wdiag * ext_matvec(op[0], op[1], u), ext.offsets[-1],
+        torch.float64, num_iters=20, range_start=True, operand=(ext, A0), device=device)
+    eres = ext_solve(hier, ext, b, tol=1e-8, max_cycles=200, cheby_coeffs=ecoeffs,
+                     async_fire_prob=0.5, sim_read_delay=4,
+                     draws=RecordedExtDraws(want["draws"]), device=device)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    log(f"additive {GENERIC_SIDE}^3 async_implicit_ext_bpx, the reference's draws: steps "
+        f"{eres.iters} (reference {want['iters']}), rel_res {float(eres.rel_resnorm):.4e} "
+        f"(reference {want['rel_res']:.4e}), bounds {[round(c, 6) for c in ecoeffs]}, {s:.3f} s")
+    rec["ext replay"] = {"iters": eres.iters, "rel_res": float(eres.rel_resnorm), "solve_s": s}
+    if eres.iters != want["iters"] or not close(eres.history_list(), want["history"], 1e-8):
+        fails.append("48^3 async_implicit_ext_bpx replay: not the reference's steps or history")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, fails
+
+
 def generic_phase(device):
     """The generic AMG path: returns (record, failures)."""
     import torch
@@ -1337,6 +1708,12 @@ def generic_phase(device):
     rec.update(host_ms_per_cycle=host_ms, device_busy_ms_per_cycle=busy,
                events_per_cycle=events, idle_share=idle)
 
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), ASYNC_REF)) as f:
+        aref = json.load(f)
+    log("additive and async solvers:")
+    rec["additive 96"], f96 = additive_phase_96(prob, hh, hier64, hier32, b_np, aref, device)
+    fails += f96
+
     rng = np.random.default_rng(SEED + 9)
     spmv = {}
     for k in (1, 2):
@@ -1372,6 +1749,9 @@ def generic_phase(device):
         if r48.iters != want or not float(r48.rel_resnorm) <= 1e-8:
             fails.append(f"generic {key}: not the reference's cycles")
         del h48
+    rec["additive 48"], f48 = additive_phase_48(aref, device)
+    log(f"additive phase at {GENERIC_SIDE}^3: {rec['additive 48']['phase_s']:.1f} s")
+    fails += f48
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"generic phase: {rec['phase_s']:.1f} s")
     return rec, fails

@@ -13,12 +13,14 @@ coefficient planes in its sweep.
 The generic (algebraic) path, which runs no custom kernel: its 24^3 solve
 on the card against the port on the CPU (the same cycles, float64 history
 to 1e-10), ELL and BSR spmv on the card against the CPU, and the DIA
-fine-operator branch of `device_hierarchy` (K5 below float64).
+fine-operator branch of `device_hierarchy` (K5 below float64). Its
+additive cycles, `async_solve` (FULL and SEMI) and `async_smooth_solve` at
+24^3 on the card against the CPU under the same draws (history to 1e-10).
 
 Marked `cuda`; without a card every test skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
-    # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5, -k generic
+    # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5, -k generic, -k async
 
 Tolerances: float64 to 1e-12 and float32 to 1e-5, relative to the largest
 interior value, the zero shell exactly; where the kernel rounds every
@@ -584,3 +586,110 @@ def test_dia_fine_operator_runs_k5_in_float32_on_the_card(device):
         assert type(A0) is kind
         got = (A0 @ torch.from_numpy(x).to(device=device, dtype=dtype)).double().cpu().numpy()
         assert np.abs(got - want).max() <= TOL[dtype] * scale.max()
+
+
+def _additive_cfgs():
+    from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
+
+    return {
+        "multadd": CycleConfig(cycle=CycleType.MULTADD, use_smoothed_transfers=True),
+        "afacx": CycleConfig(cycle=CycleType.AFACX),
+        "afacj": CycleConfig(cycle=CycleType.AFACJ, afacj_level=0),
+        "bpx": CycleConfig(cycle=CycleType.BPX),
+        "mult_multadd": CycleConfig(cycle=CycleType.MULT_MULTADD, use_smoothed_transfers=True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_additive_cfgs()))
+def test_generic_additive_cycle_on_the_card_equals_the_cpu(device, generic_24, name):
+    """One cycle of each additive type at 24^3 in float64, on the card and
+    on the CPU (the P~/R~/P_id/R_id of `device_hierarchy` on both)."""
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, device_hierarchy
+    from amg_tpu_torch.solve.cycles import cycle_step
+
+    prob, hh = generic_24
+    cfg = _additive_cfgs()[name]
+    rng = np.random.default_rng(15)
+    x, b = torch.from_numpy(rng.random(prob.n)), torch.from_numpy(rng.random(prob.n))
+    want = cycle_step(device_hierarchy(hh, HierarchyParams(), prob.stencil, device="cpu"),
+                      cfg, x, b)
+    hier = device_hierarchy(hh, HierarchyParams(), prob.stencil, device=device)
+    got = cycle_step(hier, cfg, x.to(device), b.to(device)).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+class _HostDraws:
+    """Every draw from one CPU generator, the FULL rows moved to the device:
+    the same numbers whichever device the solve runs on."""
+
+    def __init__(self, seed):
+        from amg_tpu_torch.solve.async_sim import GeneratorDraws
+
+        self.inner, self.gen = GeneratorDraws(seed), torch.Generator().manual_seed(seed)
+
+    def wait_uniforms(self, L):
+        return self.inner.wait_uniforms(L)
+
+    def step(self, L):
+        return self.inner.step(L)
+
+    def read_scalar(self, lvl):
+        return self.inner.read_scalar(lvl)
+
+    def read_rows(self, lvl, n, dtype, device):
+        return torch.rand(n, generator=self.gen, dtype=torch.float64).to(device=device,
+                                                                          dtype=dtype)
+
+
+@pytest.mark.parametrize("async_type", ["full", "semi"])
+def test_async_solve_on_the_card_follows_the_cpu(device, generic_24, async_type):
+    """async_multadd at 24^3 in float64 under the same draws on the card and
+    on the CPU: the same steps, history to 1e-10 and grid waits."""
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, device_hierarchy
+    from amg_tpu_torch.solve.async_sim import AsyncConfig, async_solve
+    from amg_tpu_torch.solve.driver import cheby_setup
+
+    prob, hh = generic_24
+    cfg = _additive_cfgs()["multadd"]
+    b = torch.from_numpy(np.random.default_rng(0).random(prob.n))
+    res = {}
+    for dev in ("cpu", device):
+        hier = device_hierarchy(hh, HierarchyParams(), prob.stencil, device=dev)
+        c = cheby_setup(hier, cfg, num_iters=20, device=dev)
+        acfg = AsyncConfig(async_type=async_type, accel="richardson", cheby_mu=c.mu,
+                           cheby_delta=0.4 * c.delta)
+        res[str(dev)] = async_solve(hier, cfg, acfg, b, draws=_HostDraws(4), tol=1e-8,
+                                    max_cycles=400, device=dev)
+    cpu, gpu = res["cpu"], res[str(device)]
+    assert gpu.iters == cpu.iters and float(gpu.rel_resnorm) <= 1e-8
+    np.testing.assert_allclose(gpu.history_list(), cpu.history_list(), rtol=1e-10, atol=1e-14)
+    assert gpu.grid_wait.summary() == cpu.grid_wait.summary()
+
+
+def test_async_smooth_on_the_card_follows_the_cpu(device, generic_24):
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, device_hierarchy
+    from amg_tpu_torch.solve.async_smooth import (
+        AsyncSmoothConfig,
+        async_smooth_solve,
+        block_neighbor_mask,
+    )
+
+    class Draws:
+        def __init__(self):
+            self.gen = torch.Generator().manual_seed(6)
+
+        def step(self, B, dtype, device):
+            return torch.rand(B, generator=self.gen, dtype=torch.float64).to(device, dtype)
+
+    prob, hh = generic_24
+    nbr = block_neighbor_mask(prob.A, 8)
+    b = torch.from_numpy(np.random.default_rng(0).random(prob.n))
+    res = {}
+    for dev in ("cpu", device):
+        lv = device_hierarchy(hh, HierarchyParams(), prob.stencil, device=dev).levels[0]
+        res[str(dev)] = async_smooth_solve(lv.A, lv.sm, AsyncSmoothConfig(), nbr, b,
+                                           draws=Draws(), tol=0.0, max_cycles=100, device=dev)
+    cpu, gpu = res["cpu"], res[str(device)]
+    assert gpu.block_updates.tolist() == cpu.block_updates.tolist()
+    np.testing.assert_allclose(gpu.history_list(), cpu.history_list(), rtol=1e-10, atol=1e-14)

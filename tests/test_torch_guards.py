@@ -143,3 +143,43 @@ def test_kernel_wrappers_take_no_other_device():
     u = torch.zeros(ts.padded_shape(gs), device="meta", dtype=torch.float32)
     with pytest.raises(ValueError, match="unsupported device"):
         ts.stencil_kernel_padded(u, u, (1.0,), gs, ((0, 0, 0),), mode="residual")
+
+
+def test_async_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.solve.async_sim import AsyncConfig, async_solve
+    from amg_tpu_torch.solve.async_smooth import (
+        AsyncSmoothConfig,
+        async_smooth_solve,
+        block_neighbor_mask,
+    )
+    from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
+    from amg_tpu_torch.solve.extended import build_extended_system, ext_solve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = laplacian_3d_27pt(8)
+    hh, hier = build_hierarchy(prob.A, fine_stencil=prob.stencil, device="cpu")
+    b = torch.from_numpy(np.random.default_rng(0).random(prob.n))
+    cfg = CycleConfig(cycle=CycleType.MULTADD)
+    lv = hier.levels[0]
+    nbr = block_neighbor_mask(prob.A, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        async_solve(hier, cfg, AsyncConfig(), b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        async_smooth_solve(lv.A, lv.sm, AsyncSmoothConfig(num_blocks=4), nbr, b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_extended_system(hh, HierarchyParams())
+    ext = build_extended_system(hh, HierarchyParams(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ext_solve(hier, ext, b)
+    with pytest.raises(ValueError, match="lives on"):
+        async_solve(hier, cfg, AsyncConfig(), b, device="meta")
+    with pytest.raises(ValueError, match="lives on"):
+        async_smooth_solve(lv.A, lv.sm, AsyncSmoothConfig(num_blocks=4), nbr, b,
+                           device="meta")
+    # the explicit CPU request runs the plain path
+    assert async_solve(hier, cfg, AsyncConfig(), b, max_cycles=3, device="cpu").iters == 3
+    assert async_smooth_solve(lv.A, lv.sm, AsyncSmoothConfig(num_blocks=4), nbr, b,
+                              max_cycles=3, device="cpu").iters == 3
+    assert ext_solve(hier, ext, b, max_cycles=3, device="cpu").iters == 3

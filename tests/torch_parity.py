@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 # the matrices of a generic level that cross over to the port
-GENERIC_MATRICES = ("P", "R")
+GENERIC_MATRICES = ("P", "R", "P_s", "R_s", "P_id", "R_id")
 
 
 def interp(fn, *args, **kw):
@@ -125,3 +125,106 @@ def port_hierarchy(jax_hier, dtype=None, dia=False, host=None):
     return hierarchy_from_arrays(
         levels, ainv, dtype=dtype or torch.float64, device="cpu"
     )
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's random draws, replayed into the port's async loops. The
+# reference draws with jax.random inside its jitted loops; these sources walk
+# the same key chains eagerly and hand the port the raw numbers of each step,
+# so a replayed run follows the reference's history step for step.
+
+
+def _jr():
+    import jax
+
+    return jax.random
+
+
+class JaxAsyncDraws:
+    """async_sim.async_solve's draws for PRNGKey(seed): the wait-counter
+    split first (only when the loop asks for it), then split(key, 3 + L) a
+    step into the firing key, the permutation key and one read key per
+    level (amg_tpu/solve/async_sim.py:225,228-236,198-209,272,363-368)."""
+
+    def __init__(self, seed=0):
+        self.key = _jr().PRNGKey(seed)
+        self.kreads = None
+
+    def wait_uniforms(self, L):
+        self.key, kw = _jr().split(self.key)
+        return f64(_jr().uniform(kw, (L,)))
+
+    def step(self, L):
+        self.key, kf, kp, *self.kreads = _jr().split(self.key, 3 + L)
+        return f64(_jr().uniform(kf, (L,))), np.asarray(_jr().permutation(kp, L))
+
+    def read_scalar(self, lvl):
+        return float(_jr().uniform(self.kreads[lvl], ()))
+
+    def read_rows(self, lvl, n, dtype, device):
+        u = torch.tensor(f64(_jr().uniform(self.kreads[lvl], (n,))))
+        return u.to(device=device, dtype=dtype)
+
+    def record(self, L, steps):
+        """Every draw of `steps` steps in SEMI mode (the scalar read of every
+        level), as the lists tools/torch_async_reference.py stores."""
+        fire, perm, reads = [], [], []
+        for _ in range(steps):
+            u, p = self.step(L)
+            fire.append(u.tolist())
+            perm.append(p.tolist())
+            reads.append([self.read_scalar(lvl) for lvl in range(L)])
+        return {"fire": fire, "perm": perm, "reads": reads}
+
+
+class JaxSmoothDraws:
+    """async_smooth_solve's draws for PRNGKey(seed): split(key) a step, then
+    (B,) uniforms (amg_tpu/solve/async_smooth.py:105,127)."""
+
+    def __init__(self, seed=0):
+        self.key = _jr().PRNGKey(seed)
+
+    def step(self, B, dtype, device):
+        self.key, kf = _jr().split(self.key)
+        return torch.tensor(f64(_jr().uniform(kf, (B,)))).to(device=device, dtype=dtype)
+
+
+class JaxExtDraws:
+    """ext_solve's draws for PRNGKey(seed): split(key, 3) a step into the
+    firing and the read key, (L,) uniforms each
+    (amg_tpu/solve/extended.py:322-329)."""
+
+    def __init__(self, seed=0):
+        self.key = _jr().PRNGKey(seed)
+
+    def step(self, L):
+        self.key, kf, kr = _jr().split(self.key, 3)
+        return f64(_jr().uniform(kf, (L,))), f64(_jr().uniform(kr, (L,)))
+
+    def record(self, L, steps):
+        """Every draw of `steps` steps, as tools/torch_async_reference.py
+        stores them."""
+        fire, read = zip(*(self.step(L) for _ in range(steps)))
+        return {"fire": [u.tolist() for u in fire], "read": [u.tolist() for u in read]}
+
+
+def async_options(hier, cfg, cheby_setup, async_type="full", sim_read_delay=4,
+                  accel="richardson", comm_every=1, cheby_grid=0, **kw):
+    """The AsyncConfig keywords that the reference's runner derives for an
+    async additive solve (amg_tpu/utils/runner.py:492-570), for either
+    package (`cheby_setup` is that package's): acceleration defaults to
+    Richardson for async (amg_tpu/utils/config.py:263-272); mu and delta
+    come from cheby_setup(num_iters=20) on the MULTADD cfg, delta damped
+    0.4x under FULL staleness, 0.6x under SEMI and not at all at delay 0;
+    with comm_every > 1 the scalar omega instead."""
+    kw = dict(kw, async_type=async_type, sim_read_delay=sim_read_delay, comm_every=comm_every)
+    if accel not in ("cheby", "richardson"):
+        return kw
+    coeffs = cheby_setup(hier, cfg, num_iters=20)
+    if comm_every > 1:
+        return dict(kw, omega=0.5 * 2.0 / (coeffs.alpha + coeffs.beta))
+    damp = 0.4 if async_type == "full" else 0.6
+    if sim_read_delay == 0:
+        damp = 1.0
+    return dict(kw, accel=accel, cheby_grid=cheby_grid, cheby_mu=coeffs.mu,
+                cheby_delta=coeffs.delta * damp)
