@@ -32,6 +32,11 @@ block smoothers' "sm" also holds "block_inv" and "block_inv_bwd" (nblocks,
 bs, bs).
 
 plus the dense `coarse_Ainv` of the coarsest level.
+
+The AMS preconditioner's state crosses over the same way
+(`ams_from_arrays`): {"G", "Gt"[, "Pi", "Pit"]} matrix dicts as above,
+"inv_wscale" (n_edges,), and "node"[, "pi"] as (levels, coarse_Ainv) of the
+nodal hierarchies.
 """
 
 from __future__ import annotations
@@ -120,3 +125,23 @@ def hierarchy_from_arrays(levels, coarse_Ainv, dtype=torch.float64, device=None)
             )
         )
     return Hierarchy(levels=tuple(out), coarse_Ainv=_tensor(coarse_Ainv, dtype, device))
+
+
+def ams_from_arrays(arrays: dict, dtype=torch.float64, device=None):
+    """The port's AMSData on `device` (None: the CUDA device; raises without
+    one) in `dtype`, from float64 host arrays."""
+    from amg_tpu_torch.solve.ams import AMSData
+
+    device = resolve_device(device)
+    pi = {}
+    if arrays.get("pi") is not None:
+        pi = dict(Pi=matrix_from_arrays(arrays["Pi"], dtype, device),
+                  Pit=matrix_from_arrays(arrays["Pit"], dtype, device),
+                  pi_hier=hierarchy_from_arrays(*arrays["pi"], dtype=dtype, device=device))
+    return AMSData(
+        G=matrix_from_arrays(arrays["G"], dtype, device),
+        Gt=matrix_from_arrays(arrays["Gt"], dtype, device),
+        inv_wscale=_tensor(arrays["inv_wscale"], dtype, device),
+        node_hier=hierarchy_from_arrays(*arrays["node"], dtype=dtype, device=device),
+        **pi,
+    )

@@ -30,6 +30,9 @@ class Problem:
     rhs: Optional[np.ndarray] = None  # the problem's own right-hand side
     near_nullspace: Optional[np.ndarray] = None
     num_functions: int = 1  # interleaved dofs per grid node
+    # problem-specific auxiliary operators (Maxwell's discrete gradient "G"
+    # and Nedelec nodal interpolation "Pi" for the AMS preconditioner)
+    aux: Optional[dict] = None
 
     @property
     def n(self) -> int:

@@ -41,8 +41,8 @@ from amg_tpu_torch.sparse.csr import CSRMatrix
 
 @dataclass(frozen=True)
 class HierarchyParams:
-    """Setup knobs of the classical hierarchy (the reference's, with a torch
-    `dtype`; the smoothed-aggregation knobs come with that setup)."""
+    """Setup knobs of the classical and smoothed-aggregation hierarchies (the
+    reference's, with a torch `dtype`)."""
 
     strong_threshold: float = 0.25
     coarsen_type: str = "hmis"  # a key of setup.coarsen.COARSENING
@@ -69,8 +69,11 @@ class HierarchyParams:
     # truncation of the additive smoothed transfers
     add_trunc_factor: float = 0.0
     add_p_max_elmts: int = 0
-    # "classical"; "sa" (smoothed aggregation) is not ported yet
+    # setup family: "classical" (PMIS/HMIS + ext+i) or "sa" (smoothed
+    # aggregation on near-nullspace candidates, setup/aggregation.py)
     setup_type: str = "classical"
+    sa_theta: float = 0.0  # SA symmetric strength threshold
+    sa_omega: float = 4.0 / 3.0  # prolongator smoothing: omega / rho(D^-1 A)
     # hybrid-JGS damping: None = undamped, "auto" = damp only if the sweep
     # diverges (1/rho(M^-1 A)), or a float weight
     jgs_weight: Any = "auto"
@@ -358,16 +361,18 @@ def build_hierarchy(
     device=None,
 ):
     """Full setup: (HostHierarchy, device Hierarchy) on `device` (None: the
-    CUDA device; raises without one)."""
-    if params.setup_type == "sa":
-        raise NotImplementedError(
-            "setup_type='sa' (smoothed aggregation, setup/aggregation.py) comes in a "
-            "later slice of the port (ROADMAP queue 1, item 3)"
-        )
-    if params.setup_type != "classical":
-        raise ValueError(f"unknown setup_type {params.setup_type!r}")
+    CUDA device; raises without one). params.setup_type selects the classical
+    or the smoothed-aggregation host setup; `near_nullspace` feeds the SA
+    candidates (e.g. Problem.near_nullspace)."""
     from amg_tpu_torch.dtypes import resolve_device
 
     device = resolve_device(device)
-    hh = build_host_hierarchy(A, params)
+    if params.setup_type == "sa":
+        from amg_tpu_torch.setup.aggregation import build_sa_host_hierarchy
+
+        hh = build_sa_host_hierarchy(A, params, B=near_nullspace)
+    elif params.setup_type == "classical":
+        hh = build_host_hierarchy(A, params)
+    else:
+        raise ValueError(f"unknown setup_type {params.setup_type!r}")
     return hh, device_hierarchy(hh, params, fine_stencil, device)

@@ -315,6 +315,22 @@ def _smoother_weight(A_csr: CSRMatrix, smoother) -> float:
     return 1.0 / max(estimate_rho_dinv_a(A_csr, scale=scale), 1e-12)
 
 
+def _params_overrides(params):
+    """What a HierarchyParams sets in the structured builders, as the
+    reference's do: (dtype, smoother, smooth_weight, max_levels,
+    max_coarse_size), the last at least 8."""
+    return (params.dtype, params.smoother, params.smooth_weight, params.max_levels,
+            max(params.max_coarse_size, 8))
+
+
+def _smoother_kw(params) -> dict:
+    """The block smoothers' block_size and jgs_weight: the params', else 128
+    and "auto" (the divergence guard of hybrid JGS)."""
+    if params is None:
+        return {"block_size": 128, "jgs_weight": "auto"}
+    return {"block_size": params.block_size, "jgs_weight": params.jgs_weight}
+
+
 def _coarse_shape(shape):
     return tuple((s + 1) // 2 for s in shape)
 
@@ -454,10 +470,12 @@ def _csr_to_var_stencil(A: CSRMatrix, grid_shape) -> VarStencilOperator:
 
 def build_structured_hierarchy(
     fine: StencilOperator,
+    params=None,
     max_levels: int = 25,
     max_coarse_size: int = 600,
     dtype=torch.float64,
     smoother=None,
+    smooth_weight=None,
     coarse_op: str = "auto",  # auto | var (exact RAP) | const
     device=None,
 ):
@@ -468,15 +486,20 @@ def build_structured_hierarchy(
     `"auto"` on levels with min side >= 32 — stores the RAP's interior row as
     a constant StencilOperator (the outermost cell layer is the only
     approximation, guarded below). The device hierarchy lives on `device`
-    (None: the CUDA device; raises without one)."""
+    (None: the CUDA device; raises without one). A `HierarchyParams`
+    `params` overrides the keywords (see `_params_overrides`); a given
+    `smooth_weight` replaces every level's 1 / rho(S^-1 A)."""
     # convert.py imports this module's operator classes
     from amg_tpu_torch.convert import hierarchy_from_arrays
 
     device = resolve_device(device)
+    if params is not None:
+        dtype, smoother, smooth_weight, max_levels, max_coarse_size = _params_overrides(params)
     if smoother is None:
         smoother = SmootherType.L1_JACOBI
+    sm_kw = _smoother_kw(params)
 
-    hh = HostHierarchy()
+    hh = HostHierarchy(params=params)
     shapes = [tuple(fine.grid_shape)]
     A_csr = stencil_to_csr(fine)
     A_arr = {
@@ -490,9 +513,10 @@ def build_structured_hierarchy(
     while True:
         shape = shapes[-1]
         hl = HostLevel(A=A_csr)
-        hl.weight = _smoother_weight(A_csr, smoother)
+        hl.weight = smooth_weight if smooth_weight is not None \
+            else _smoother_weight(A_csr, smoother)
         hh.levels.append(hl)
-        sm = make_smoother_data(A_csr, smoother, w=hl.weight, jgs_weight="auto")
+        sm = make_smoother_data(A_csr, smoother, w=hl.weight, **sm_kw)
         n = A_csr.n_rows
         if n <= max_coarse_size or lvl == max_levels - 1 or min(shape) < 5:
             levels.append({"A": A_arr, "sm": sm, "transfer": None})
@@ -611,10 +635,12 @@ def build_dia_structured_hierarchy(
     A: CSRMatrix,
     node_shape: Tuple[int, ...],
     num_functions: int = 1,
+    params=None,
     max_levels: int = 25,
     max_coarse_size: int = 600,
     dtype=torch.float64,
     smoother=None,
+    smooth_weight=None,
     device=None,
     sweep_coef_dtype=None,
 ):
@@ -633,20 +659,26 @@ def build_dia_structured_hierarchy(
     is pinned back to 1. The device hierarchy lives on `device` (None: the
     CUDA device; raises without one). With `sweep_coef_dtype` (e.g.
     torch.bfloat16) every level's smoother sweeps stream their coefficient
-    planes at that dtype (`DiaKernelOperator.with_sweep_dtype`)."""
+    planes at that dtype (`DiaKernelOperator.with_sweep_dtype`). A
+    `HierarchyParams` `params` overrides the keywords and gives the block
+    smoothers their block_size and jgs_weight (`_params_overrides`); a given
+    `smooth_weight` replaces every level's 1 / rho(S^-1 A)."""
     import scipy.sparse as sp
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
 
     device = resolve_device(device)
+    if params is not None:
+        dtype, smoother, smooth_weight, max_levels, max_coarse_size = _params_overrides(params)
     if smoother is None:
         smoother = SmootherType.L1_JACOBI
+    sm_kw = _smoother_kw(params)
     d = max(num_functions, 1)
 
     def dia_shape(ns):
         return tuple(ns[:-1]) + (ns[-1] * d,)
 
-    hh = HostHierarchy()
+    hh = HostHierarchy(params=params)
     node_shapes = [tuple(node_shape)]
     A_csr = A
     levels = []
@@ -657,9 +689,10 @@ def build_dia_structured_hierarchy(
         A_arr = {"kind": "dia", "coeffs": coeffs, "offsets": offsets,
                  "grid_shape": dia_shape(ns)}
         hl = HostLevel(A=A_csr)
-        hl.weight = _smoother_weight(A_csr, smoother)
+        hl.weight = smooth_weight if smooth_weight is not None \
+            else _smoother_weight(A_csr, smoother)
         hh.levels.append(hl)
-        sm = make_smoother_data(A_csr, smoother, w=hl.weight, jgs_weight="auto")
+        sm = make_smoother_data(A_csr, smoother, w=hl.weight, **sm_kw)
         n = A_csr.n_rows
         mask_f = _identity_row_mask(A_csr.to_scipy())
         if mask_f.any():

@@ -17,6 +17,7 @@ The float32 block products need full float32: PyTorch's default
 
 from __future__ import annotations
 
+import contextlib
 import enum
 from typing import NamedTuple, Optional
 
@@ -109,6 +110,20 @@ def _jgs_auto_weight(A_csr, inv_fwd: np.ndarray, bs: int, nblocks: int) -> float
     return 1.0 / max(rho_power(apply_MinvA), 1.0)
 
 
+def _one_blas_thread():
+    """numpy's BLAS held to one thread where threadpoolctl is installed (a
+    no-op elsewhere). The block inverses are one LAPACK call per 128 x 128
+    block and the damping estimate one BLAS-1 call per vector, which BLAS
+    threads only slow down: the inverses 18x on an idle 8-core host at
+    24,843 rows, and by two orders of magnitude when other processes share
+    the cores. The results are bit-equal either way."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        return contextlib.nullcontext()
+    return threadpool_limits(limits=1, user_api="blas")
+
+
 def make_smoother_data(
     A_csr, smoother: SmootherType, w: float = 1.0, block_size: int = 128, jgs_weight=None
 ) -> dict:
@@ -129,12 +144,14 @@ def make_smoother_data(
         n = A_csr.n_rows
         bs = n if smoother == SmootherType.GS else min(block_size, n)
         nblocks = -(-n // bs)
-        inv_fwd = _block_inverses(A_csr, bs, nblocks, upper=False)
-        inv_bwd = _block_inverses(A_csr, bs, nblocks, upper=True)
-        if jgs_weight == "auto":
-            jgs_w = _jgs_auto_weight(A_csr, inv_fwd, bs, nblocks)
-        else:
-            jgs_w = 1.0 if jgs_weight is None else float(jgs_weight)
+        # many small blocks: one BLAS thread (GS's one block keeps them all)
+        with _one_blas_thread() if nblocks > 1 else contextlib.nullcontext():
+            inv_fwd = _block_inverses(A_csr, bs, nblocks, upper=False)
+            inv_bwd = _block_inverses(A_csr, bs, nblocks, upper=True)
+            if jgs_weight == "auto":
+                jgs_w = _jgs_auto_weight(A_csr, inv_fwd, bs, nblocks)
+            else:
+                jgs_w = 1.0 if jgs_weight is None else float(jgs_weight)
         out["block_inv"] = jgs_w * inv_fwd
         out["block_inv_bwd"] = jgs_w * inv_bwd
     return out

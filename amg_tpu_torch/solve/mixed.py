@@ -1,5 +1,16 @@
-"""Mixed-precision AMG-PCG on native float64 (counterpart of
-amg_tpu/solve/mixed.py::mixed_pcg, its unfused host loop).
+"""Mixed precision on native float64 (counterpart of amg_tpu/solve/mixed.py:
+`mixed_solve` with its float64 refinement loop `_loop_f64`, and `mixed_pcg`
+as its unfused host loop).
+
+`mixed_solve` is iterative refinement with one cycle of a (float32)
+hierarchy per step, against a float64 fine operator:
+
+    x (f64); repeat:  r = b - A x  (f64);  x += V_32(r)  (zero guess)
+
+The reference takes this loop on the CPU and a double-single one on the
+TPU; the H100 has native float64, so the float64 loop is the only route.
+
+`mixed_pcg`:
 
 The reference keeps the Krylov state and the operator in double-single
 (pairs of float32) because the TPU has no float64. The H100 has native
@@ -20,6 +31,7 @@ history.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,7 +45,7 @@ from amg_tpu_torch.solve.krylov import pcg
 
 class MixedSolveResult(NamedTuple):
     x: torch.Tensor  # float64
-    iters: int  # inner PCG iterations, summed over the restarts
+    iters: int  # refinement cycles (mixed_solve); inner PCG iterations (mixed_pcg)
     rel_resnorm: float
     history: torch.Tensor  # (max_cycles + 1,), NaN-padded
 
@@ -43,6 +55,43 @@ class MixedSolveResult(NamedTuple):
     def history_list(self):
         h = self.history.numpy()
         return h[~np.isnan(h)].tolist()
+
+
+def mixed_solve(
+    hier,
+    A64,
+    cfg: CycleConfig,
+    b,
+    x0: Optional[torch.Tensor] = None,
+    tol: float = 1e-8,
+    max_cycles: int = 200,
+    device=None,
+) -> MixedSolveResult:
+    """Solve A x = b to `tol` (relative residual of the float64 fine operator
+    A64) with one `cycle_step` on `hier` (its dtype, typically float32) from
+    a zero guess per refinement step, on `device` (None: the CUDA device;
+    raises without one). One host read per cycle (the stop test)."""
+    device = resolve_device(device)
+    if hier.device != device:
+        raise ValueError(f"hierarchy lives on {hier.device}, solve asked for {device}")
+    f64 = torch.float64
+    b = torch.as_tensor(b).to(device=device, dtype=f64)
+    x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
+    r = residual(A64, x, b)
+    r0n = float(torch.linalg.norm(r))
+    safe_r0 = r0n if r0n > 0.0 else 1.0
+    hist = [1.0]
+    rel = math.inf
+    while len(hist) <= max_cycles and rel > tol:
+        r32 = r.to(hier.dtype)
+        x = x + cycle_step(hier, cfg, torch.zeros_like(r32), r32).to(f64)
+        r = residual(A64, x, b)
+        rel = float(torch.linalg.norm(r)) / safe_r0
+        hist.append(rel)
+    h = np.full(max_cycles + 1, np.nan)
+    h[: len(hist)] = hist
+    return MixedSolveResult(x=x, iters=len(hist) - 1, rel_resnorm=rel,
+                            history=torch.from_numpy(h))
 
 
 def mixed_pcg(

@@ -100,8 +100,36 @@ Phases (any failure exits non-zero and prints no result line):
      count within the reference's five keys' range widened by 10%;
      async_smooth (southwell_exp) and the async implicit extended system,
      the reference's draws replayed: block updates / steps and histories
-     (rtol 1e-8). The reference's numbers and draws: ASYNC_REF;
- 12. timing with CUDA events: the V(1,1) per-cycle time of
+     (rtol 1e-8). The reference's numbers and draws: ASYNC_REF; then
+     `mixed_solve` on the float32 96^3 hierarchy against the float64
+     stencil to 1e-8: within one cycle of the JAX package's count (float32
+     cycles may move it by one), true residual <= 1e-8 (ELAST_REF);
+ 12. the JAX bench's elasticity solve (`bench.py::aux_dia_elasticity`):
+     phase 8 with hybrid JGS V(2,2), whose every sweep takes its residual
+     from K5 and applies the block inverses with torch.bmm: K5 launched,
+     the reference's level sizes and iterations +-1 (its Krylov state is
+     double-single, here float64), true residual <= 1e-5, the float64
+     preconditioner equal to its plain composition; the block solve timed
+     beside the byte bound of its factor stream;
+ 13. goldens config10 and config11 (the 49,179-dof beam, L1-Jacobi and
+     hybrid JGS, as the JAX package's runner builds them): level_n and
+     level_nnz the goldens', iterations within one, true residual <= 1e-5,
+     history[:5] to rtol 0.1 (their float32 histories moved on the
+     reference itself across XLA builds, ROADMAP F1), K5 launched;
+ 14. SA-PCG (golden config8's recipe) on elasticity_beam(144, 18, 18),
+     155,952 dofs: the reference's level sizes and nnz and float64
+     iterations, rel_res <= 1e-8 and a true residual within 5% of the
+     reference's own (1.12e-8: PCG's recursive residual drifts from the
+     true one on this beam); the float32 hierarchy under mixed_pcg (plain
+     float32 PCG does not converge here, in the reference either) to a
+     true residual <= 1e-8; the peak memory of the ELL spmv temporaries;
+ 15. AMS-PCG on maxwell_curlcurl(40), 182,520 edges, float64, b =
+     default_rng(0).random(n): the node and Pi hierarchies' level sizes and
+     the iterations the reference's, true residual <= 1e-8; the async
+     additive AMS solve on maxwell_curlcurl(8) on the reference's recorded
+     draws: its steps and history (rtol 1e-8). The reference's numbers and
+     draws of 12-15 and of phase 11's mixed_solve: ELAST_REF;
+ 16. timing with CUDA events: the V(1,1) per-cycle time of
      `struct_timed_cycles` (slope between two cycle counts) and K1, K3, K4
      at their 126^3 shapes beside their plain versions, their DRAM byte
      bound and, for K1, the `torch.nn.functional.conv3d` yardstick; K3's
@@ -1006,28 +1034,62 @@ def plain_dia_hierarchy(hier):
                      coarse_Ainv=hier.coarse_Ainv), plain
 
 
-def elasticity_phase(device, prob, vs):
-    """The 157k-dof elasticity solve: DIA hierarchy, mixed_pcg, K5."""
+def solve_profile(fn, iters):
+    """(host ms, device busy ms, events, idle share, rows) per iteration of a
+    solve: one run on the host clock, one under torch.profiler (after the
+    caller's first run, which took the counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, events, rows = profile_device_ms(fn)
+    idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
+    k = max(iters, 1)
+    return wall_ms / k, busy_ms / k, events / k, idle, rows
+
+
+def log_profile(label, prof):
+    host, busy, events, idle, rows = prof
+    log(f"{label}: host clock {host:.4f} ms per iteration; device busy {busy:.4f} ms in "
+        f"{events:.1f} kernel and copy events per iteration; idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    for ms, n, name in rows[:8]:
+        log(f"  {ms:.4f} ms  {n:6d} launches  {name[:100]}")
+    return {"host_ms": host, "device_busy_ms": busy, "events": events, "idle_share": idle}
+
+
+def elasticity_phase(device, prob, vs, smoother_name="l1_jacobi", ref=None):
+    """The 157k-dof elasticity solve: DIA hierarchy, V(2,2) with the given
+    smoother under mixed_pcg, K5. With `ref` (the JAX package's run of the
+    same solve), the level sizes must be its and the iterations within one of
+    its (the Krylov state is double-single there, float64 here)."""
     import torch
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
     from amg_tpu_torch.setup.structured import build_dia_structured_hierarchy
-    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.smooth.smoothers import SmootherType, _block_solve
     from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
     from amg_tpu_torch.solve.mixed import mixed_pcg
 
+    smoother = SmootherType(smoother_name)
     nodes = tuple(c + 1 for c in BEAM)
     t0 = time.perf_counter()
     hh, hier32 = build_dia_structured_hierarchy(prob.A, nodes, num_functions=3,
-                                                dtype=torch.float32, device=device)
+                                                dtype=torch.float32, smoother=smoother,
+                                                device=device)
     A64 = dia_operator(vs, torch.float64, device)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    log(f"elasticity {BEAM} ({prob.n} dofs, {prob.A.indptr[-1]} nnz): setup {setup_s:.2f} s; "
-        f"levels {[(lv.A.grid_shape, len(lv.A.offsets)) for lv in hier32.levels]}, "
+    st = hh.stats()
+    log(f"elasticity {BEAM} ({prob.n} dofs, {prob.A.indptr[-1]} nnz), {smoother_name}: setup "
+        f"{setup_s:.2f} s (block inverses included); levels "
+        f"{[(lv.A.grid_shape, len(lv.A.offsets)) for lv in hier32.levels]}, level_n {st['n']}, "
         f"coarsest {hier32.coarse_Ainv.shape[0]} dense")
-    cfg = CycleConfig(cycle=CycleType.MULT, smoother=SmootherType.L1_JACOBI,
-                      num_pre_sweeps=2, num_post_sweeps=2)
+    cfg = CycleConfig(cycle=CycleType.MULT, smoother=smoother, num_pre_sweeps=2,
+                      num_post_sweeps=2)
     b = prob.rhs / np.linalg.norm(prob.rhs)
 
     def solve(hier, A):
@@ -1044,44 +1106,54 @@ def elasticity_phase(device, prob, vs):
     x = res.x.cpu().numpy()
     true_rel = float(np.linalg.norm(b - prob.A @ x) / np.linalg.norm(b))
     it = res.iters
-    log(f"mixed_pcg float32 V(2,2) preconditioner: iterations {it}, rel_res "
-        f"{res.rel_resnorm:.4e}, true rel_res (float64 CSR) {true_rel:.4e}, solve {solve_s:.3f} s, "
-        f"{solve_s / max(it, 1) * 1e3:.3f} ms/iteration; launches {counts}, K5 per iteration "
-        f"{counts['K5'] / max(it, 1):.2f}")
+    ref_txt = "" if ref is None else f" (reference {ref['iters']})"
+    log(f"mixed_pcg float32 V(2,2) {smoother_name} preconditioner: iterations {it}{ref_txt}"
+        f", rel_res {res.rel_resnorm:.4e}, true rel_res (float64 CSR) {true_rel:.4e}, solve "
+        f"{solve_s:.3f} s, {solve_s / max(it, 1) * 1e3:.3f} ms/iteration; launches {counts}, K5 "
+        f"per iteration {counts['K5'] / max(it, 1):.2f}")
     log("  history", [float(f"{v:.4e}") for v in res.history_list()])
     fails = []
     if not (true_rel <= 1e-5 and it <= 60 and np.isfinite(x).all()):
-        fails.append("elasticity mixed_pcg: true residual > 1e-5 or > 60 iterations")
+        fails.append(f"elasticity {smoother_name} mixed_pcg: true residual > 1e-5 or > 60 "
+                     "iterations")
     if counts["K5"] == 0:
-        fails.append("elasticity path launched no K5")
-    # a second run for the host clock, a third under the profiler
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res2 = solve(hier32, A64)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, events, rows = profile_device_ms(lambda: solve(hier32, A64))
-    idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
-    log(f"elasticity solve again: {res2.iters} iterations, {wall_ms:.3f} ms "
-        f"({wall_ms / max(res2.iters, 1):.3f} ms/iteration); device busy (torch.profiler, one "
-        f"solve) {busy_ms:.3f} ms in {events} kernel and copy events; idle share "
-        f"{'not measured' if idle is None else f'{idle:.3f}'}")
-    for ms, n, name in rows[:10]:
-        log(f"  {ms:.4f} ms  {n:6d} launches  {name[:100]}")
+        fails.append(f"elasticity {smoother_name} path launched no K5")
+    if ref is not None and (abs(it - ref["iters"]) > 1 or st["n"] != ref["level_n"]):
+        fails.append(f"elasticity {smoother_name}: not the reference's levels or iterations +-1")
+    rec = {"iters": it, "rel_res": res.rel_resnorm, "true_rel_res": true_rel,
+           "setup_s": setup_s, "solve_s": solve_s, "counts": counts, "level_n": st["n"],
+           "history": res.history_list()}
+    prof = solve_profile(lambda: solve(hier32, A64), it)
+    rec.update(log_profile(f"elasticity {smoother_name} solve", prof))
+    if smoother in (SmootherType.HYBRID_JGS,):
+        # the block solve (torch.bmm, no TPU kernel) against the bound of its
+        # factor stream: the fine level's (nblocks, 128, 128) float32
+        # inverses read once, r and the output once each
+        inv = hier32.levels[0].sm.block_inv
+        factor_bytes = sum(2 * lv.sm.block_inv.numel() * lv.sm.block_inv.element_size()
+                           for lv in hier32.levels)
+        rs = [torch.randn(prob.n, device=device) for _ in range(3)]
+        bmm_ms = cuda_time(lambda i: _block_solve(inv, rs[i % 3]), 20)
+        nbytes = inv.numel() * inv.element_size() + 2 * inv.shape[0] * inv.shape[1] * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"JGS block solve (torch.bmm) {tuple(inv.shape)} float32: {bmm_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, bytes); both directions' float32 "
+            f"factors on all levels {factor_bytes / 1e6:.1f} MB on the card")
+        rec.update(bmm_ms=bmm_ms, bmm_bound_ms=bound, bmm_bytes=nbytes,
+                   factor_bytes=factor_bytes)
     # float64 preconditioner against the plain composition
     hier64 = hierarchy_from_arrays(*hh.arrays, dtype=torch.float64, device=device)
     r64 = solve(hier64, A64)
     plain_hier, plain = plain_dia_hierarchy(hier64)
     rp = solve(plain_hier, plain(A64))
     dx = float(torch.linalg.norm(r64.x - rp.x) / torch.linalg.norm(rp.x))
-    log(f"mixed_pcg float64 preconditioner: iterations {r64.iters} (plain composition "
-        f"{rp.iters}), rel_res {r64.rel_resnorm:.4e}, |x - x_plain|/|x_plain| {dx:.3e}")
+    log(f"mixed_pcg float64 {smoother_name} preconditioner: iterations {r64.iters} (plain "
+        f"composition {rp.iters}), rel_res {r64.rel_resnorm:.4e}, |x - x_plain|/|x_plain| "
+        f"{dx:.3e}")
     if r64.iters != rp.iters or dx > 1e-10:
-        fails.append("elasticity float64 solve against the plain composition")
-    return {"iters": it, "rel_res": res.rel_resnorm, "true_rel_res": true_rel,
-            "setup_s": setup_s, "solve_s": solve_s, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms or None, "idle_share": idle, "counts": counts,
-            "iters64": r64.iters, "plain_iters64": rp.iters, "dx64": dx}, fails
+        fails.append(f"elasticity {smoother_name} float64 solve against the plain composition")
+    rec.update(iters64=r64.iters, plain_iters64=rp.iters, dx64=dx)
+    return rec, fails
 
 
 def elasticity_bf16_phase(device, errs):
@@ -1204,6 +1276,277 @@ def elasticity_bf16_phase(device, errs):
 # (golden config9's size). GENERIC_REF holds the JAX package's own results
 # for the same inputs on the CPU in float64
 # (`JAX_PLATFORMS=cpu python3 tools/torch_generic_reference.py`).
+# the JAX package's own runs of the slice-9 paths on the CPU in float64, with
+# the async AMS solve's draws (`JAX_PLATFORMS=cpu python3
+# tools/torch_elasticity_reference.py`)
+ELAST_REF = "tools/torch_elasticity_reference.json"
+SA_BEAM = BEAM  # bc "reduce": 155,952 dofs, the rigid-body modes as candidates
+MAXWELL_N = 40  # maxwell_curlcurl(40): 182,520 edges
+AMS_ASYNC_N = 8  # the async AMS replay's mesh
+GOLDEN_DIA = ("config10_elasticity_dia_mixed", "config11_elasticity_jgs_mixed")
+
+
+def load_json(rel):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)) as f:
+        return json.load(f)
+
+
+def golden_dia_phase(device):
+    """Goldens config10 and config11 (the 49,179-dof beam, float32 DIA
+    hierarchy, L1-Jacobi and hybrid JGS, under mixed_pcg) on the card, as
+    the JAX package's runner builds them. Their float32 histories moved on
+    the reference itself across XLA builds (ROADMAP F1): held by level_n and
+    level_nnz, the iterations within one, a true float64 residual <= 1e-5
+    and history[:5] to rtol 0.1."""
+    import torch
+
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams
+    from amg_tpu_torch.setup.structured import build_dia_structured_hierarchy, csr_to_dia_stencil
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.mixed import mixed_pcg
+
+    rec, fails = {}, []
+    for name in GOLDEN_DIA:
+        g = load_json(f"tests/golden/{name}.json")
+        c = g["config"]
+        smoother = SmootherType(c.get("smoother", "l1_jacobi"))
+        prob = elasticity_beam(nx=c["nx"], ny=c["ny"], nz=c["nz"], bc=c["elast_bc"])
+        t0 = time.perf_counter()
+        hh, hier = build_dia_structured_hierarchy(
+            prob.A, (c["nx"] + 1, c["ny"] + 1, c["nz"] + 1), num_functions=3,
+            params=HierarchyParams(num_functions=3, smoother=smoother, dtype=torch.float32),
+            device=device)
+        A64 = dia_operator(csr_to_dia_stencil(prob.A, prob.grid_shape), torch.float64, device)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        cfg = CycleConfig(smoother=smoother)
+        b = prob.rhs / np.linalg.norm(prob.rhs)
+
+        def solve():
+            return mixed_pcg(hier, A64, cfg, b, tol=c["tol"], max_cycles=c["num_cycles"],
+                             device=device)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        res = solve()
+        counts = read_counts()
+        x = res.x.cpu().numpy()
+        true_rel = true_rel_residual(prob, x, b)
+        st = hh.stats()
+        h = res.history_list()
+        dev = float(np.max(np.abs(np.asarray(h[:5]) - g["history"][:5]) / np.asarray(g["history"][:5])))
+        log(f"{name} ({prob.n} dofs, {smoother.value}): setup {setup_s:.2f} s, level_n {st['n']} "
+            f"(golden {g['level_n']}), iterations {res.iters} (golden {g['cycles']}), true rel_res "
+            f"{true_rel:.4e}, history[:5] max rel deviation {dev:.3e}; launches {counts}")
+        r = {"iters": res.iters, "golden_iters": g["cycles"], "true_rel_res": true_rel,
+             "history_head_dev": dev, "setup_s": setup_s, "counts": counts}
+        r.update(log_profile(f"{name} solve", solve_profile(solve, res.iters)))
+        rec[name] = r
+        if st["n"] != g["level_n"] or st["nnz"] != g["level_nnz"]:
+            fails.append(f"{name}: level_n / level_nnz differ from the golden's")
+        if abs(res.iters - g["cycles"]) > 1 or not true_rel <= 1e-5 or dev > 0.1 \
+                or counts["K5"] == 0:
+            fails.append(f"{name}: iterations, true residual, history[:5] or K5 launches")
+        del hier, A64
+    return rec, fails
+
+
+def ell_peak_mb(m, x):
+    """Peak device memory (MB) one ELL spmv allocates above what is live: its
+    (n, k) gather and product temporaries."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = m @ x
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del y
+    return peak / 1e6
+
+
+def sa_phase(device, ref):
+    """SA-PCG at full size (golden config8's recipe): the level sizes and nnz
+    and the float64 iterations the reference's, rel_res <= 1e-8 and a true
+    residual within 5% of the reference's own (PCG's recursive residual
+    drifts from the true one on this beam: the reference's x has 1.12e-8).
+    Plain float32 PCG does not converge on this beam, in the reference
+    either (kappa * eps_f32 > 1); the float32 hierarchy runs as mixed_pcg's
+    preconditioner instead (float64 state and operator), to a true residual
+    <= 1e-8 within 200 iterations."""
+    import torch
+
+    from amg_tpu_torch.convert import hierarchy_from_arrays
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.driver import solve
+    from amg_tpu_torch.solve.mixed import mixed_pcg
+
+    fails = []
+    prob = elasticity_beam(*SA_BEAM)
+    t0 = time.perf_counter()
+    hh, hier64 = build_hierarchy(prob.A, HierarchyParams(num_functions=3, setup_type="sa"),
+                                 near_nullspace=prob.near_nullspace, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    st = hh.stats()
+    log(f"SA elasticity_beam{SA_BEAM} ({prob.n} dofs): setup {setup_s:.2f} s, level_n {st['n']} "
+        f"(reference {ref['level_n']}), level_nnz {st['nnz']}, operator complexity "
+        f"{st['operator_complexity']:.4f}; ELL widths "
+        f"{[(lv.A.k, None if lv.P is None else lv.P.k, None if lv.R is None else lv.R.k) for lv in hier64.levels]}")
+    if st["n"] != ref["level_n"] or st["nnz"] != ref["level_nnz"]:
+        fails.append("SA hierarchy differs from the reference's")
+    b_np = prob.rhs / np.linalg.norm(prob.rhs)
+    b64 = torch.from_numpy(b_np).to(device)
+    cfg = CycleConfig()
+
+    def run(hier, b, tol, max_cycles=200):
+        return solve(hier, cfg, b, tol=tol, max_cycles=max_cycles, outer="pcg", device=device)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(hier64, b64, 1e-8)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    true_rel = true_rel_residual(prob, res.x.cpu().numpy(), b_np)
+    log(f"SA-PCG float64 V(1,1) L1-Jacobi: iterations {res.iters} (reference {ref['iters']}), "
+        f"rel_res {float(res.rel_resnorm):.4e}, true rel_res {true_rel:.4e}, {solve_s:.3f} s; "
+        f"launches {counts}")
+    log(f"  the reference's true rel_res {ref['true_rel_res']:.4e}")
+    rec = {"level_n": st["n"], "setup_s": setup_s, "iters64": res.iters,
+           "true_rel_res64": true_rel, "solve64_s": solve_s}
+    if res.iters != ref["iters"] or not float(res.rel_resnorm) <= 1e-8 \
+            or not true_rel <= 1.05 * ref["true_rel_res"]:
+        fails.append("SA-PCG float64: not the reference's iterations or true residual")
+    rec.update(log_profile("SA-PCG float64", solve_profile(lambda: run(hier64, b64, 1e-8),
+                                                           res.iters)))
+    hier32 = hierarchy_from_arrays(*hh.arrays, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    res32 = mixed_pcg(hier32, hier64.levels[0].A, cfg, b_np, tol=1e-8, max_cycles=200,
+                      device=device)
+    torch.cuda.synchronize()
+    s32 = time.perf_counter() - t0
+    true32 = true_rel_residual(prob, res32.x.cpu().numpy(), b_np)
+    log(f"SA float32 hierarchy under mixed_pcg (float64 state and operator): iterations "
+        f"{res32.iters}, true rel_res {true32:.4e}, {s32:.3f} s; plain float32 PCG in the "
+        f"reference: {ref['f32_pcg']['iters']} iterations to rel_res "
+        f"{ref['f32_pcg']['rel_res']:.3e}")
+    rec.update(iters32_mixed=res32.iters, true_rel_res32_mixed=true32, solve32_mixed_s=s32)
+    if not (true32 <= 1e-8 and res32.iters <= 200):
+        fails.append("SA float32 hierarchy under mixed_pcg: true residual > 1e-8")
+    x = torch.rand(prob.n, dtype=torch.float64, device=device)
+    l0 = hier64.levels[0]
+    peaks = {"A0": ell_peak_mb(l0.A, x), "R0": ell_peak_mb(l0.R, x),
+             "P0": ell_peak_mb(l0.P, l0.R @ x)}
+    log(f"SA ELL spmv temporaries, float64, peak MB above the live set: {peaks}")
+    rec["ell_peak_mb"] = peaks
+    del hier32, hier64
+    torch.cuda.empty_cache()
+    return rec, fails
+
+
+class RecordedAMSDraws:
+    """The async AMS solve's draws as the reference consumed them, step by
+    step."""
+
+    def __init__(self, draws):
+        self.fire, self.cols, self.k = draws["fire"], draws["cols"], 0
+
+    def step(self, Lg):
+        if self.k >= len(self.fire):
+            raise RuntimeError("the replay ran past the reference's recorded steps")
+        f, c = np.asarray(self.fire[self.k]), np.asarray(self.cols[self.k])
+        self.k += 1
+        assert f.shape == (Lg,)
+        return f, c
+
+
+def ams_phase(device, ref):
+    """AMS-PCG on the curl-curl problem at MAXWELL_N in float64: the nodal
+    and Pi hierarchies' level sizes and the iterations the reference's, true
+    residual <= 1e-8; the async additive AMS solve at AMS_ASYNC_N on the
+    reference's recorded draws: its steps and history (rtol 1e-8)."""
+    import torch
+
+    from amg_tpu_torch.convert import matrix_from_arrays
+    from amg_tpu_torch.problems.maxwell import maxwell_curlcurl
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, _format_converter
+    from amg_tpu_torch.solve.ams import (
+        ams_async_additive_solve,
+        async_ams_eigs,
+        build_ams,
+        solve_ams_pcg,
+    )
+
+    fails = []
+    prob = maxwell_curlcurl(MAXWELL_N)
+    t0 = time.perf_counter()
+    ams, cfg = build_ams(prob.A, prob.aux["G"], Pi=prob.aux["Pi"], device=device)
+    A = matrix_from_arrays(_format_converter(HierarchyParams())(prob.A), torch.float64, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    node_n = [lv.A.shape[0] for lv in ams.node_hier.levels]
+    pi_n = [lv.A.shape[0] for lv in ams.pi_hier.levels]
+    log(f"AMS maxwell_curlcurl({MAXWELL_N}) ({prob.n} edges): setup {setup_s:.2f} s, node "
+        f"levels {node_n} (reference {ref['node_level_n']}), Pi levels {pi_n} (reference "
+        f"{ref['pi_level_n']})")
+    if node_n != ref["node_level_n"] or pi_n != ref["pi_level_n"]:
+        fails.append("AMS hierarchies differ from the reference's")
+    b_np = np.random.default_rng(0).random(prob.n)
+    b = torch.from_numpy(b_np).to(device)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_ams_pcg(A, ams, cfg, b, tol=1e-8, max_iters=200, device=device)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    true_rel = true_rel_residual(prob, res.x.cpu().numpy(), b_np)
+    log(f"AMS-PCG float64: iterations {res.iters} (reference {ref['iters']}), rel_res "
+        f"{float(res.rel_resnorm):.4e}, true rel_res {true_rel:.4e}, {solve_s:.3f} s; "
+        f"launches {counts}")
+    rec = {"node_level_n": node_n, "pi_level_n": pi_n, "setup_s": setup_s,
+           "iters": res.iters, "true_rel_res": true_rel, "solve_s": solve_s}
+    if res.iters != ref["iters"] or not true_rel <= 1e-8:
+        fails.append("AMS-PCG: not the reference's iterations or true residual > 1e-8")
+    rec.update(log_profile("AMS-PCG float64", solve_profile(
+        lambda: solve_ams_pcg(A, ams, cfg, b, tol=1e-8, max_iters=200, device=device),
+        res.iters)))
+    del ams, A
+
+    aref = ref["async_n8"]
+    p8 = maxwell_curlcurl(AMS_ASYNC_N)
+    ams8, _ = build_ams(p8.A, p8.aux["G"], Pi=p8.aux["Pi"], device=device)
+    A8 = matrix_from_arrays(_format_converter(HierarchyParams())(p8.A), torch.float64, device)
+    co = async_ams_eigs(A8, ams8)
+    omega = 0.7 * 2.0 / (co.alpha + co.beta)
+    b8 = p8.rhs / np.linalg.norm(p8.rhs)
+    t0 = time.perf_counter()
+    ares = ams_async_additive_solve(A8, ams8, b8, draws=RecordedAMSDraws(aref["draws"]),
+                                    fire_prob=0.8, sim_read_delay=2, tol=1e-8, max_cycles=600,
+                                    device=device)
+    torch.cuda.synchronize()
+    async_s = time.perf_counter() - t0
+    h = np.asarray(ares.history_list())
+    ok_hist = h.shape == (len(aref["history"]),) and np.allclose(
+        h, aref["history"], rtol=1e-8, atol=1e-14)
+    log(f"async AMS maxwell_curlcurl({AMS_ASYNC_N}), the reference's draws: {ares.iters} steps "
+        f"(reference {aref['iters']}), rel_res {float(ares.rel_resnorm):.4e}, omega {omega:.12f} "
+        f"(reference {aref['omega']:.12f}), history {'equal' if ok_hist else 'DIFFERS'} "
+        f"(rtol 1e-8), {async_s:.3f} s ({async_s / max(ares.iters, 1) * 1e3:.3f} ms per step)")
+    rec["async"] = {"iters": ares.iters, "omega": omega, "ref_omega": aref["omega"],
+                    "history_equal": ok_hist, "s": async_s}
+    if ares.iters != aref["iters"] or not ok_hist:
+        fails.append("async AMS replay: not the reference's steps or history")
+    return rec, fails
+
+
 GENERIC_N = 96
 GENERIC_SIDE = 48
 GENERIC_REF = {
@@ -1630,6 +1973,7 @@ def generic_phase(device):
     from amg_tpu_torch.smooth.smoothers import SmootherType
     from amg_tpu_torch.solve.cycles import CycleConfig
     from amg_tpu_torch.solve.driver import cheby_setup, solve
+    from amg_tpu_torch.solve.mixed import mixed_solve
 
     t_phase = time.perf_counter()
     fails, rec = [], {}
@@ -1685,6 +2029,22 @@ def generic_phase(device):
     rec.update(iters32=res32.iters, rel_res32=float(res32.rel_resnorm), f64_cycle_1e4=k64)
     if abs(res32.iters - k64) > 1 or not float(res32.rel_resnorm) <= 1e-4:
         fails.append("generic float32 solve: not within one cycle of the float64 history")
+
+    # mixed_solve: the float32 hierarchy's cycles refined in float64 against
+    # the float64 fine stencil
+    eref = load_json(ELAST_REF)["mixed"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mres = mixed_solve(hier32, hier64.levels[0].A, cfg, b64, tol=1e-8, device=device)
+    torch.cuda.synchronize()
+    mixed_s = time.perf_counter() - t0
+    mtrue = true_rel_residual(prob, mres.x.cpu().numpy(), b_np)
+    log(f"mixed_solve float32 cycles, float64 refinement: cycles {mres.iters} (reference "
+        f"{eref['iters']}), rel_res {mres.rel_resnorm:.4e}, true rel_res {mtrue:.4e}, "
+        f"{mixed_s:.3f} s ({mixed_s / max(mres.iters, 1) * 1e3:.3f} ms per cycle)")
+    rec["mixed_solve"] = {"iters": mres.iters, "true_rel_res": mtrue, "s": mixed_s}
+    if abs(mres.iters - eref["iters"]) > 1 or not mtrue <= 1e-8:
+        fails.append("mixed_solve: not within one cycle of the reference or true residual > 1e-8")
 
     # timing of the 96^3 float64 solve: host clock per cycle (tol 0, so every
     # cycle runs, with its one scalar read), the device's busy time per cycle
@@ -1878,12 +2238,34 @@ def main() -> int:
     if fel:
         log("elasticity path FAILED:", fel)
         return 1
+    eref = load_json(ELAST_REF)
+    log("elasticity path, hybrid JGS (the JAX bench's production smoother):")
+    jgs, fjgs = elasticity_phase(device, *operators["157k"], smoother_name="hybrid_jgs",
+                                 ref=eref["jgs"])
+    if fjgs:
+        log("hybrid JGS elasticity path FAILED:", fjgs)
+        return 1
     log("elasticity path, bf16 sweep planes:")
     el16, fel16 = elasticity_bf16_phase(device, errs)
     if fel16:
         log("bf16 elasticity path FAILED:", fel16)
         return 1
     del operators
+    log("goldens config10 / config11 on the card:")
+    gdia, fgdia = golden_dia_phase(device)
+    if fgdia:
+        log("goldens config10 / config11 FAILED:", fgdia)
+        return 1
+    log("smoothed aggregation:")
+    sa, fsa = sa_phase(device, eref["sa"])
+    if fsa:
+        log("SA path FAILED:", fsa)
+        return 1
+    log("AMS:")
+    amsr, fams = ams_phase(device, eref["ams"])
+    if fams:
+        log("AMS path FAILED:", fams)
+        return 1
     log("generic AMG path:")
     gen, fgen = generic_phase(device)
     if fgen:
@@ -1947,6 +2329,10 @@ def main() -> int:
     log(json.dumps({"v33": v33}))
     log(json.dumps({"elasticity": el}))
     log(json.dumps({"elasticity_bf16": el16}))
+    log(json.dumps({"elasticity_jgs": jgs}))
+    log(json.dumps({"goldens_dia": gdia}))
+    log(json.dumps({"sa": sa}))
+    log(json.dumps({"ams": amsr}))
     log(json.dumps({"generic": gen}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

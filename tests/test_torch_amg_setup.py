@@ -235,7 +235,17 @@ def test_numpy_route_gives_the_other_hierarchy_f6():
 
 
 def test_sa_setup_names_its_later_slice():
+    """setup_type="sa" raised NotImplementedError, naming its later slice,
+    until that slice ported smoothed aggregation; now it builds the
+    reference's hierarchy (tests/test_torch_aggregation.py holds it step by
+    step), and an unknown setup_type is refused."""
     prob = laplacian_2d_5pt(8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        phi.build_hierarchy(port_csr(prob.A), phi.HierarchyParams(setup_type="sa"),
+    hh, hier = phi.build_hierarchy(port_csr(prob.A),
+                                   phi.HierarchyParams(setup_type="sa", max_coarse_size=10),
+                                   device="cpu")
+    want = rhi.build_hierarchy(prob.A, rhi.HierarchyParams(setup_type="sa",
+                                                           max_coarse_size=10))[0]
+    assert hh.stats()["n"] == want.stats()["n"] and hier.num_levels >= 2
+    with pytest.raises(ValueError, match="setup_type"):
+        phi.build_hierarchy(port_csr(prob.A), phi.HierarchyParams(setup_type="none"),
                             device="cpu")

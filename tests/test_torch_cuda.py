@@ -17,10 +17,16 @@ fine-operator branch of `device_hierarchy` (K5 below float64). Its
 additive cycles, `async_solve` (FULL and SEMI) and `async_smooth_solve` at
 24^3 on the card against the CPU under the same draws (history to 1e-10).
 
+The elasticity and Maxwell preconditioners: hybrid JGS on the DIA beam
+(K5 in `residual` mode, counted) in both dtypes, the SA-PCG solve, AMS-PCG
+and the async AMS solve, and `mixed_solve`, each on the card against the
+port on the CPU.
+
 Marked `cuda`; without a card every test skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
-    # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5, -k generic, -k async
+    # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5, -k generic, -k async,
+    # -k "sa or ams or jgs or mixed_solve"
 
 Tolerances: float64 to 1e-12 and float32 to 1e-5, relative to the largest
 interior value, the zero shell exactly; where the kernel rounds every
@@ -693,3 +699,106 @@ def test_async_smooth_on_the_card_follows_the_cpu(device, generic_24):
     cpu, gpu = res["cpu"], res[str(device)]
     assert gpu.block_updates.tolist() == cpu.block_updates.tolist()
     np.testing.assert_allclose(gpu.history_list(), cpu.history_list(), rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_jgs_dia_cycle_on_the_card_equals_the_cpu(device, dtype):
+    """One hybrid-JGS V(2,2) cycle on the DIA beam: every sweep's residual is
+    a K5 `residual` launch on the card (counted), the block solve torch.bmm;
+    against the CPU (K5's plain version) to 1e-12 (float64) / 1e-5
+    (float32) relative to the largest value."""
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.structured import build_dia_structured_hierarchy
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.cycles import CycleConfig, cycle_step
+
+    prob = elasticity_beam(24, 6, 6, bc="identity")
+    kw = dict(num_functions=3, dtype=dtype, smoother=SmootherType.HYBRID_JGS)
+    _, h_cpu = build_dia_structured_hierarchy(prob.A, (25, 7, 7), device="cpu", **kw)
+    _, h_gpu = build_dia_structured_hierarchy(prob.A, (25, 7, 7), device=device, **kw)
+    cfg = CycleConfig(smoother=SmootherType.HYBRID_JGS, num_pre_sweeps=2, num_post_sweeps=2)
+    b = torch.from_numpy(np.random.default_rng(16).random(prob.n)).to(dtype)
+    want = cycle_step(h_cpu, cfg, torch.zeros_like(b), b)
+    before = tvs.var_stencil_kernel_padded.launches
+    bg = b.to(device)
+    got = cycle_step(h_gpu, cfg, torch.zeros_like(bg), bg)
+    torch.cuda.synchronize()
+    assert tvs.var_stencil_kernel_padded.launches - before >= 4 * (h_gpu.num_levels - 1)
+    err = float((got.double().cpu() - want.double()).abs().max())
+    assert err <= TOL[dtype] * float(want.double().abs().max())
+
+
+def test_sa_pcg_on_the_card_equals_the_cpu(device):
+    """SA-PCG (golden config8's recipe) on a 3-D beam in float64: the same
+    iterations on the card and the CPU, the history to rtol 1e-6 (the beam's
+    PCG turns rounding at 1e-16 into ~1e-8 over its iterations)."""
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.driver import solve
+
+    prob = elasticity_beam(16, 4, 4)
+    params = HierarchyParams(num_functions=3, setup_type="sa")
+    b = torch.from_numpy(prob.rhs / np.linalg.norm(prob.rhs))
+    res = {}
+    for dev in ("cpu", device):
+        _, hier = build_hierarchy(prob.A, params, near_nullspace=prob.near_nullspace,
+                                  device=dev)
+        res[str(dev)] = solve(hier, CycleConfig(), b, tol=1e-8, outer="pcg", device=dev)
+    cpu, gpu = res["cpu"], res[str(device)]
+    assert gpu.iters == cpu.iters and float(gpu.rel_resnorm) <= 1e-8
+    np.testing.assert_allclose(gpu.history_list(), cpu.history_list(), rtol=1e-6)
+
+
+def test_ams_on_the_card_equals_the_cpu(device):
+    """AMS-PCG and the async AMS solve (the same CPU-generator draws) on
+    maxwell_curlcurl(6) in float64: the same iterations / steps on the card
+    and the CPU, the histories to rtol 1e-8."""
+    from amg_tpu_torch.convert import matrix_from_arrays
+    from amg_tpu_torch.problems.maxwell import maxwell_curlcurl
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, _format_converter
+    from amg_tpu_torch.solve.ams import (
+        GeneratorAMSDraws,
+        ams_async_additive_solve,
+        build_ams,
+        solve_ams_pcg,
+    )
+
+    prob = maxwell_curlcurl(6)
+    b = np.random.default_rng(0).random(prob.n)
+    pcgs, asyncs = {}, {}
+    for dev in ("cpu", device):
+        ams, cfg = build_ams(prob.A, prob.aux["G"], Pi=prob.aux["Pi"], device=dev)
+        A = matrix_from_arrays(_format_converter(HierarchyParams())(prob.A), torch.float64, dev)
+        pcgs[str(dev)] = solve_ams_pcg(A, ams, cfg, b, device=dev)
+        asyncs[str(dev)] = ams_async_additive_solve(A, ams, b, draws=GeneratorAMSDraws(3),
+                                                    tol=1e-8, device=dev)
+    for res in (pcgs, asyncs):
+        cpu, gpu = res["cpu"], res[str(device)]
+        assert gpu.iters == cpu.iters and float(gpu.rel_resnorm) <= 1e-8
+        hc, hg = cpu.history.cpu().numpy(), gpu.history.cpu().numpy()
+        np.testing.assert_allclose(hg[~np.isnan(hg)], hc[~np.isnan(hc)], rtol=1e-8, atol=1e-14)
+
+
+def test_mixed_solve_on_the_card_equals_the_cpu(device):
+    """mixed_solve on the generic 16^3 hierarchy in float32 against the
+    float64 stencil: the same cycles on the card and the CPU, x to 1e-6."""
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.mixed import mixed_solve
+    from amg_tpu_torch.sparse.stencil import StencilOperator
+
+    prob = laplacian_3d_27pt(16)
+    b = np.random.default_rng(0).random(prob.n)
+    res = {}
+    for dev in ("cpu", device):
+        _, hier = build_hierarchy(prob.A, HierarchyParams(dtype=torch.float32),
+                                  fine_stencil=prob.stencil, device=dev)
+        A64 = StencilOperator(weights=prob.stencil.weights.to(dev), offsets=prob.stencil.offsets,
+                              grid_shape=prob.stencil.grid_shape)
+        res[str(dev)] = mixed_solve(hier, A64, CycleConfig(), b, tol=1e-8, device=dev)
+    cpu, gpu = res["cpu"], res[str(device)]
+    assert gpu.iters == cpu.iters and gpu.rel_resnorm <= 1e-8
+    x = cpu.x.numpy()
+    assert np.linalg.norm(gpu.x.cpu().numpy() - x) <= 1e-6 * np.linalg.norm(x)

@@ -183,3 +183,49 @@ def test_async_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert async_smooth_solve(lv.A, lv.sm, AsyncSmoothConfig(num_blocks=4), nbr, b,
                               max_cycles=3, device="cpu").iters == 3
     assert ext_solve(hier, ext, b, max_cycles=3, device="cpu").iters == 3
+
+
+def test_sa_ams_and_mixed_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from amg_tpu_torch.convert import ams_from_arrays, matrix_from_arrays
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.problems.maxwell import maxwell_curlcurl
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, _format_converter, build_hierarchy
+    from amg_tpu_torch.solve.ams import ams_async_additive_solve, build_ams, solve_ams_pcg
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.mixed import mixed_solve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    beam = elasticity_beam(nx=16, ny=4)
+    sa = HierarchyParams(num_functions=2, setup_type="sa")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_hierarchy(beam.A, sa, near_nullspace=beam.near_nullspace)
+    assert build_hierarchy(beam.A, sa, near_nullspace=beam.near_nullspace,
+                           device="cpu")[1].device.type == "cpu"
+
+    mx = maxwell_curlcurl(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_ams(mx.A, mx.aux["G"], Pi=mx.aux["Pi"])
+    ams, cfg = build_ams(mx.A, mx.aux["G"], Pi=mx.aux["Pi"], device="cpu")
+    A = matrix_from_arrays(_format_converter(HierarchyParams())(mx.A), torch.float64, "cpu")
+    b = np.random.default_rng(0).random(mx.n)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_ams_pcg(A, ams, cfg, b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ams_async_additive_solve(A, ams, b)
+    with pytest.raises(ValueError, match="lives on"):
+        solve_ams_pcg(A, ams, cfg, b, device="meta")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ams_from_arrays({})
+    assert solve_ams_pcg(A, ams, cfg, b, device="cpu").iters > 0
+    assert ams_async_additive_solve(A, ams, b, max_cycles=3, device="cpu").iters == 3
+
+    lap = laplacian_3d_27pt(8)
+    _, hier = build_hierarchy(lap.A, HierarchyParams(dtype=torch.float32),
+                              fine_stencil=lap.stencil, device="cpu")
+    b = np.random.default_rng(0).random(lap.n)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mixed_solve(hier, lap.stencil, CycleConfig(), b)
+    with pytest.raises(ValueError, match="hierarchy lives on"):
+        mixed_solve(hier, lap.stencil, CycleConfig(), b, device="meta")
+    assert mixed_solve(hier, lap.stencil, CycleConfig(), b, max_cycles=2, device="cpu").iters == 2

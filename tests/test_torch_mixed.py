@@ -11,6 +11,11 @@ against the JAX package.
   CPU): the two differ in the Krylov arithmetic, so the same total iteration
   count +-1, both at or below tol in the float64 CSR residual, and x to 1e-6
   relative.
+- `mixed_solve` (float64 refinement around one float32 cycle per step) on
+  the generic 12^3 27-point hierarchy built in float32 by each package,
+  against JAX `mixed_solve` (its float64 loop `_loop_f64`, the CPU route):
+  the same cycle count, x to 1e-6 relative, the history to rtol 1e-4 (the
+  float32 cycles sum in different orders).
 """
 
 import numpy as np
@@ -26,12 +31,13 @@ from amg_tpu.solve.cycles import CycleType as JaxCycleType
 from amg_tpu.solve.cycles import cycle_step as jax_cycle_step
 from amg_tpu.solve.krylov import pcg as jax_pcg
 from amg_tpu.solve.mixed import mixed_pcg as jax_mixed_pcg
+from amg_tpu.solve.mixed import mixed_solve as jax_mixed_solve
 
 from amg_tpu_torch.problems.elasticity import elasticity_beam
 from amg_tpu_torch.setup import structured as tst
 from amg_tpu_torch.solve.cycles import CycleConfig, cycle_step
 from amg_tpu_torch.solve.krylov import pcg
-from amg_tpu_torch.solve.mixed import mixed_pcg
+from amg_tpu_torch.solve.mixed import mixed_pcg, mixed_solve
 
 from torch_parity import port_hierarchy
 
@@ -92,3 +98,28 @@ def test_mixed_pcg_matches_jax():
     h = got.history_list()
     assert h[0] == 1.0 and h[-1] == got.rel_resnorm and len(h) >= 2
     assert np.linalg.norm(got.x.numpy() - x_want) <= 1e-6 * np.linalg.norm(x_want)
+
+
+def test_mixed_solve_matches_jax():
+    from amg_tpu.problems import laplacian_3d_27pt as jax_27pt
+    from amg_tpu.setup.hierarchy import HierarchyParams as JaxParams
+    from amg_tpu.setup.hierarchy import build_hierarchy as jax_build
+
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+
+    jprob, prob = jax_27pt(12), laplacian_3d_27pt(12)
+    b = np.random.default_rng(0).random(prob.n)
+    _, jh = jax_build(jprob.A, JaxParams(dtype=jnp.float32), fine_stencil=jprob.stencil)
+    want = jax_mixed_solve(jh, jprob.stencil, JaxCycleConfig(), jnp.asarray(b), tol=1e-8)
+    _, th = build_hierarchy(prob.A, HierarchyParams(dtype=torch.float32),
+                            fine_stencil=prob.stencil, device="cpu")
+    assert th.dtype == torch.float32
+    got = mixed_solve(th, prob.stencil, CycleConfig(), b, tol=1e-8, device="cpu")
+    assert got.x.dtype == torch.float64
+    assert 0 < got.iters == int(want.iters) < 200
+    assert got.rel_resnorm <= 1e-8
+    x_want = np.asarray(want.x)
+    assert np.linalg.norm(got.x.numpy() - x_want) <= 1e-6 * np.linalg.norm(x_want)
+    h = np.asarray(want.history)
+    np.testing.assert_allclose(got.history_list(), h[~np.isnan(h)], rtol=1e-4)

@@ -228,3 +228,88 @@ def async_options(hier, cfg, cheby_setup, async_type="full", sim_read_delay=4,
         damp = 1.0
     return dict(kw, accel=accel, cheby_grid=cheby_grid, cheby_mu=coeffs.mu,
                 cheby_delta=coeffs.delta * damp)
+
+
+class JaxAMSDraws:
+    """ams_async_additive_solve's draws for PRNGKey(seed): split(key, 3) a
+    step into the firing and the column key, (Lg,) uniforms each
+    (amg_tpu/solve/ams.py:337-343)."""
+
+    def __init__(self, seed=0):
+        self.key = _jr().PRNGKey(seed)
+
+    def step(self, Lg):
+        import jax.numpy as jnp
+
+        self.key, kf, kr = _jr().split(self.key, 3)
+        return f64(_jr().uniform(kf, (Lg,), jnp.float64)), f64(_jr().uniform(kr, (Lg,)))
+
+    def record(self, Lg, steps):
+        """Every draw of `steps` steps, as tools/torch_elasticity_reference.py
+        stores them."""
+        fire, cols = zip(*(self.step(Lg) for _ in range(steps)))
+        return {"fire": [u.tolist() for u in fire], "cols": [u.tolist() for u in cols]}
+
+
+def jax_build_ams_with_hosts(monkeypatch, A, G, Pi=None, **kw):
+    """The JAX package's build_ams, with the HostHierarchy of each nodal
+    hierarchy it builds (its build_hierarchy calls, recorded): (AMSData, cfg,
+    [node host, Pi host])."""
+    import amg_tpu.solve.ams as rams
+
+    hosts = []
+    inner = rams.build_hierarchy
+
+    def recording(*a, **k):
+        hh, hier = inner(*a, **k)
+        hosts.append(hh)
+        return hh, hier
+
+    monkeypatch.setattr(rams, "build_hierarchy", recording)
+    ams, cfg = rams.build_ams(A, G, Pi=Pi, **kw)
+    return ams, cfg, hosts
+
+
+def export_jax_ams(ams, hosts, G, Pi=None):
+    """The arrays of amg_tpu_torch.convert.ams_from_arrays for a JAX AMSData
+    built from the reference CSR matrices G and Pi, with the HostHierarchy of
+    its nodal hierarchies (`jax_build_ams_with_hosts`)."""
+    out = {"G": _matrix(ams.G, G), "Gt": _matrix(ams.Gt, G.transpose()),
+           "inv_wscale": f64(ams.inv_wscale),
+           "node": export_jax_hierarchy(ams.node_hier, host=hosts[0])}
+    if ams.pi_hier is not None:
+        out.update(Pi=_matrix(ams.Pi, Pi), Pit=_matrix(ams.Pit, Pi.transpose()),
+                   pi=export_jax_hierarchy(ams.pi_hier, host=hosts[1]))
+    return out
+
+
+def jax_async_ams_eigs(A_dev, ams, smoothed_transfers=True):
+    """The eigenvalue bounds ams_async_additive_solve estimates for omega="auto"
+    and its accelerations: estimate_cycle_eigs(num_iters=20) of the summed
+    group corrections (amg_tpu/solve/ams.py:283-303)."""
+    import jax.numpy as jnp
+
+    from amg_tpu.smooth import SmootherType
+    from amg_tpu.solve.accel import estimate_cycle_eigs
+    from amg_tpu.solve.cycles import CycleConfig, CycleType, additive_correction
+
+    nL = ams.node_hier.num_levels
+    Lg = 1 + nL + (ams.pi_hier.num_levels if ams.pi_hier is not None else 0)
+    cfg = CycleConfig(cycle=CycleType.MULTADD, smoother=SmootherType.L1_JACOBI,
+                      use_smoothed_transfers=smoothed_transfers)
+
+    def group(g, r):
+        if g == 0:
+            return ams.inv_wscale * r
+        if g <= nL:
+            return ams.G @ additive_correction(ams.node_hier, cfg, ams.Gt @ r, g - 1)
+        return ams.Pi @ additive_correction(ams.pi_hier, cfg, ams.Pit @ r, g - 1 - nL)
+
+    def minv_a(u):
+        r = A_dev @ u
+        c = jnp.zeros_like(u)
+        for g in range(Lg):
+            c = c + group(g, r)
+        return c
+
+    return estimate_cycle_eigs(minv_a, A_dev.shape[0], jnp.float64, num_iters=20)
