@@ -11,10 +11,16 @@ The generic (algebraic) path runs no custom kernel, as in the reference;
 its host setup uses the port's copy of the reference's native setup library
 (`native/amg_setup.cpp`, built with g++ by `native_backend.py`).
 
-Entry points (`setup.structured.build_structured_hierarchy`,
-`solve.struct_cycle.struct_solve`, `solve.struct_cycle.struct_timed_cycles`;
+The drivers are the entry point a user calls, as in the reference:
+`utils.runner.run_experiment(utils.config.SolverOptions(...))` runs one
+configuration (problem, hierarchy, solver, stats) and
+`python -m amg_tpu_torch.utils.cli` takes the reference's flags (and
+`-device cpu|cuda`). Beneath them (`setup.structured.
+build_structured_hierarchy`, `solve.struct_cycle.struct_solve`,
+`solve.struct_cycle.struct_timed_cycles`;
 `setup.structured.build_dia_structured_hierarchy`, `solve.mixed.mixed_pcg`
 for the elasticity path; `setup.hierarchy.build_hierarchy`,
 `solve.driver.solve` and `solve.driver.cheby_setup` for the generic path)
-run on the CUDA device unless the caller passes `device="cpu"`.
+every entry point runs on the CUDA device unless the caller passes
+`device="cpu"`.
 """

@@ -23,16 +23,15 @@ SETUP_DTYPE = np.float64
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` -> the current CUDA device (raises without one); else
-    `torch.device(device)`, with a bare "cuda" pinned to the current index."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run the plain "
-                "PyTorch path on the CPU"
-            )
-        device = "cuda"
-    d = torch.device(device)
+    """`None` -> the current CUDA device; else `torch.device(device)`, with a
+    bare "cuda" pinned to the current index. A CUDA device raises where
+    there is none."""
+    d = torch.device("cuda" if device is None else device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
     return d

@@ -83,7 +83,9 @@ def mixed_solve(
     hist = [1.0]
     rel = math.inf
     while len(hist) <= max_cycles and rel > tol:
-        r32 = r.to(hier.dtype)
+        # the residual is rounded to float32 whatever the hierarchy's dtype,
+        # as the reference rounds it
+        r32 = r.to(torch.float32).to(hier.dtype)
         x = x + cycle_step(hier, cfg, torch.zeros_like(r32), r32).to(f64)
         r = residual(A64, x, b)
         rel = float(torch.linalg.norm(r)) / safe_r0

@@ -112,9 +112,9 @@ Phases (any failure exits non-zero and prints no result line):
      preconditioner equal to its plain composition; the block solve timed
      beside the byte bound of its factor stream;
  13. goldens config10 and config11 (the 49,179-dof beam, L1-Jacobi and
-     hybrid JGS, as the JAX package's runner builds them): level_n and
-     level_nnz the goldens', iterations within one, true residual <= 1e-5,
-     history[:5] to rtol 0.1 (their float32 histories moved on the
+     hybrid JGS) through the port's runner on the goldens' options: level_n
+     and level_nnz the goldens', iterations within one, true residual <=
+     1e-5, history[:5] to rtol 0.1 (their float32 histories moved on the
      reference itself across XLA builds, ROADMAP F1), K5 launched;
  14. SA-PCG (golden config8's recipe) on elasticity_beam(144, 18, 18),
      155,952 dofs: the reference's level sizes and nnz and float64
@@ -143,6 +143,33 @@ Phases (any failure exits non-zero and prints no result line):
      (float32) conv3d; K2 in sweep2_vec and sweep3_vec at 126^3 and
      sweep2_vec and sweep3 at 190^3 (the JAX bench's headline), each beside
      the chain of K1 launches that does the same sweeps.
+ 17. the drivers (`amg_tpu_torch/utils/runner.py::run_experiment`, as its
+     halves setup_experiment / solve_experiment, which keep the hierarchy
+     for the plain composition; every launch counter set to 0 just before
+     each run and read just after): (a) the flagship, 27pt at 126^3 on the
+     structured hierarchy (the runner's max_coarse_size 64), float64, tol
+     1e-8, V(1,1) L1-Jacobi through struct_solve: K1 (box), K3 and K4
+     launched, a true float64 residual <= 1e-8 on the host CSR, the cycles
+     and x (1e-10) of the plain composition (driver.solve on the same
+     hierarchy, no kernel launched); setup and solve times, host and
+     device ms per cycle and the idle share; the same at V(3,3) by the
+     sweep flags (K1's tap route launched); (b) the JAX bench's elasticity
+     solve through the runner: config11's options (hybrid JGS, float32 DIA
+     hierarchy under mixed_pcg, tol 1e-5) on the 157k beam with the bench's
+     V(2,2): K5 launched, phase 12's level sizes, the reference's 14
+     iterations +-1, true residual <= 1e-5; config10's options (L1-Jacobi)
+     likewise in phase 8's 20 +-1; (c) the single-device goldens through
+     the runner: config1/2/5/9 and config8 by count, shapes and history[:5]
+     (rtol 1e-10), config3/13 on the port's generators converged in the
+     golden's steps +-25% (config10/11: phase 13); (d) the CLI, `python3 -m
+     amg_tpu_torch.utils.cli -problem 27pt -n 126 -hierarchy structured
+     -oneline_output`, in its own process: (a)'s cycles, rel_res <= 1e-8;
+     (e) `-print_level_stats` on the 96^3 generic MULT solve: the
+     segmented profile's x after 5 cycles equals cycle_step's (1e-12), the
+     per-level phase table; (f) vardifconv at 96^3 on the structured
+     hierarchy (float64 DIA levels, K5; the generic cycle, ROADMAP F10): K5
+     launched, rel_res <= 1e-8, the cycles of the plain composition (K5's
+     plain version in every operator).
 The last two lines are the `kernels` JSON object (K1 on both of its
 kernels, K2-K5, K5's bf16-plane sweep) and
 {"ok": true, "device": {...}}.
@@ -162,6 +189,7 @@ import numpy as np
 
 N_SIDE = 126
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores
@@ -1293,63 +1321,48 @@ def load_json(rel):
 
 def golden_dia_phase(device):
     """Goldens config10 and config11 (the 49,179-dof beam, float32 DIA
-    hierarchy, L1-Jacobi and hybrid JGS, under mixed_pcg) on the card, as
-    the JAX package's runner builds them. Their float32 histories moved on
-    the reference itself across XLA builds (ROADMAP F1): held by level_n and
-    level_nnz, the iterations within one, a true float64 residual <= 1e-5
-    and history[:5] to rtol 0.1."""
+    hierarchy, L1-Jacobi and hybrid JGS, under mixed_pcg) on the card,
+    through the port's runner (`setup_experiment` / `solve_experiment`, the
+    two halves of `run_experiment`) on the golden's options. Their float32
+    histories moved on the reference itself across XLA builds (ROADMAP F1):
+    held by level_n and level_nnz, the iterations within one, a true float64
+    residual <= 1e-5 and history[:5] to rtol 0.1."""
     import torch
 
     from amg_tpu_torch.problems.elasticity import elasticity_beam
-    from amg_tpu_torch.setup.hierarchy import HierarchyParams
-    from amg_tpu_torch.setup.structured import build_dia_structured_hierarchy, csr_to_dia_stencil
-    from amg_tpu_torch.smooth.smoothers import SmootherType
-    from amg_tpu_torch.solve.cycles import CycleConfig
-    from amg_tpu_torch.solve.mixed import mixed_pcg
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import setup_experiment, solve_experiment
 
     rec, fails = {}, []
     for name in GOLDEN_DIA:
         g = load_json(f"tests/golden/{name}.json")
         c = g["config"]
-        smoother = SmootherType(c.get("smoother", "l1_jacobi"))
-        prob = elasticity_beam(nx=c["nx"], ny=c["ny"], nz=c["nz"], bc=c["elast_bc"])
-        t0 = time.perf_counter()
-        hh, hier = build_dia_structured_hierarchy(
-            prob.A, (c["nx"] + 1, c["ny"] + 1, c["nz"] + 1), num_functions=3,
-            params=HierarchyParams(num_functions=3, smoother=smoother, dtype=torch.float32),
-            device=device)
-        A64 = dia_operator(csr_to_dia_stencil(prob.A, prob.grid_shape), torch.float64, device)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        cfg = CycleConfig(smoother=smoother)
-        b = prob.rhs / np.linalg.norm(prob.rhs)
-
-        def solve():
-            return mixed_pcg(hier, A64, cfg, b, tol=c["tol"], max_cycles=c["num_cycles"],
-                             device=device)
-
         torch.cuda.synchronize()
         reset_counts()
-        res = solve()
+        exp = setup_experiment(SolverOptions(**c), device)
+        st = solve_experiment(exp)
         counts = read_counts()
-        x = res.x.cpu().numpy()
+        prob = elasticity_beam(nx=c["nx"], ny=c["ny"], nz=c["nz"], bc=c["elast_bc"])
+        b = prob.rhs / np.linalg.norm(prob.rhs)
+        x = st.x.cpu().numpy()
         true_rel = true_rel_residual(prob, x, b)
-        st = hh.stats()
-        h = res.history_list()
+        h = st.history
         dev = float(np.max(np.abs(np.asarray(h[:5]) - g["history"][:5]) / np.asarray(g["history"][:5])))
-        log(f"{name} ({prob.n} dofs, {smoother.value}): setup {setup_s:.2f} s, level_n {st['n']} "
-            f"(golden {g['level_n']}), iterations {res.iters} (golden {g['cycles']}), true rel_res "
-            f"{true_rel:.4e}, history[:5] max rel deviation {dev:.3e}; launches {counts}")
-        r = {"iters": res.iters, "golden_iters": g["cycles"], "true_rel_res": true_rel,
-             "history_head_dev": dev, "setup_s": setup_s, "counts": counts}
-        r.update(log_profile(f"{name} solve", solve_profile(solve, res.iters)))
+        log(f"{name} ({st.n} dofs, {st.smoother}) through the runner: setup {st.setup_wtime:.2f} "
+            f"s, level_n {st.level_n} (golden {g['level_n']}), iterations {st.cycles} (golden "
+            f"{g['cycles']}), true rel_res {true_rel:.4e}, history[:5] max rel deviation "
+            f"{dev:.3e}; launches {counts}")
+        r = {"iters": st.cycles, "golden_iters": g["cycles"], "true_rel_res": true_rel,
+             "history_head_dev": dev, "setup_s": st.setup_wtime, "counts": counts}
+        r.update(log_profile(f"{name} solve", solve_profile(lambda: solve_experiment(exp),
+                                                            st.cycles)))
         rec[name] = r
-        if st["n"] != g["level_n"] or st["nnz"] != g["level_nnz"]:
+        if st.level_n != g["level_n"] or st.level_nnz != g["level_nnz"]:
             fails.append(f"{name}: level_n / level_nnz differ from the golden's")
-        if abs(res.iters - g["cycles"]) > 1 or not true_rel <= 1e-5 or dev > 0.1 \
+        if abs(st.cycles - g["cycles"]) > 1 or not true_rel <= 1e-5 or dev > 0.1 \
                 or counts["K5"] == 0:
             fails.append(f"{name}: iterations, true residual, history[:5] or K5 launches")
-        del hier, A64
+        del exp, st
     return rec, fails
 
 
@@ -1620,22 +1633,17 @@ ASYNC_REF = "tools/torch_async_reference.json"
 
 def async_options(hier, cfg, cheby_setup, async_type="full", sim_read_delay=4,
                   accel="richardson", comm_every=1, cheby_grid=0, **kw):
-    """The AsyncConfig keywords that the JAX package's runner derives for an
-    async additive solve (amg_tpu/utils/runner.py:492-570): Richardson by
-    default; mu and delta from cheby_setup(num_iters=20) on the MULTADD cfg,
-    delta damped 0.4x under FULL staleness, 0.6x under SEMI and not at all
-    at delay 0; with comm_every > 1 the scalar omega instead."""
+    """The AsyncConfig keywords that the port's runner derives for an async
+    additive solve (`amg_tpu_torch/utils/runner.py::async_accel_options`),
+    from cheby_setup(num_iters=20) on the MULTADD cfg."""
+    from amg_tpu_torch.utils.runner import async_accel_options
+
     kw = dict(kw, async_type=async_type, sim_read_delay=sim_read_delay, comm_every=comm_every)
     if accel not in ("cheby", "richardson"):
         return kw
     coeffs = cheby_setup(hier, cfg, num_iters=20)
-    if comm_every > 1:
-        return dict(kw, omega=0.5 * 2.0 / (coeffs.alpha + coeffs.beta))
-    damp = 0.4 if async_type == "full" else 0.6
-    if sim_read_delay == 0:
-        damp = 1.0
-    return dict(kw, accel=accel, cheby_grid=cheby_grid, cheby_mu=coeffs.mu,
-                cheby_delta=coeffs.delta * damp)
+    return dict(kw, **async_accel_options(coeffs, accel, async_type, sim_read_delay,
+                                          comm_every, cheby_grid))
 
 
 class RecordedAsyncDraws:
@@ -2117,6 +2125,239 @@ def generic_phase(device):
     return rec, fails
 
 
+# phase 17: the drivers. The goldens of one device (tests/golden): config1,
+# 2, 5, 9 (float64: count, shapes, history[:5] to 1e-10), config8 (SA-PCG:
+# the same, F9), config3 and 13 (async on the port's generators: converged,
+# steps within +-25% of the golden's); config10/11 are phase 13's
+DRIVER_GOLDENS_F64 = ("config1_5pt_mult", "config2_27pt_jacobi_cheby", "config5_maxwell_ams",
+                      "config9_27pt_medium", "config8_elasticity_sa_pcg")
+DRIVER_GOLDENS_ASYNC = ("config3_27pt_async_multadd", "config13_27pt_medium_async")
+DRIVER_N = N_SIDE  # the flagship: 27pt 126^3 structured
+DRIVER_PHASE_N = 96  # -print_level_stats on the generic MULT solve
+DRIVER_VARDIFCONV_N = 96  # vardifconv on the structured (DIA) hierarchy
+
+
+def run_driver(opts, device, exp=None):
+    """One run through the port's runner with the launch counters set to 0
+    just before and read just after: (experiment, stats, counts). With `exp`
+    (a set-up run of the same hierarchy) only the solve half runs again."""
+    import torch
+
+    from amg_tpu_torch.utils.runner import setup_experiment, solve_experiment
+
+    torch.cuda.synchronize()
+    reset_counts()
+    if exp is None:
+        exp = setup_experiment(opts, device)
+    st = solve_experiment(exp)
+    torch.cuda.synchronize()
+    return exp, st, read_counts()
+
+
+def plain_driver_solve(hier, exp, device):
+    """The plain composition of a run: driver.solve on the same hierarchy,
+    the run's cycle and b, launch counts logged (no custom kernel)."""
+    import torch
+
+    from amg_tpu_torch.solve.driver import solve
+    from amg_tpu_torch.utils.runner import cycle_config
+
+    o = exp.opts
+    b = torch.from_numpy(np.random.default_rng(o.seed).random(exp.prob.n)).to(device)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = solve(hier, cycle_config(o, exp.smoother), b, tol=o.tol, max_cycles=o.num_cycles,
+                device=device)
+    torch.cuda.synchronize()
+    return res, read_counts()
+
+
+def drivers_phase(device):
+    """Phase 17: the port's own entry point, `run_experiment` (as its halves
+    `setup_experiment` / `solve_experiment`, which keep the hierarchy for the
+    plain composition), and its CLI on the card."""
+    import dataclasses
+
+    import torch
+
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.solve.cycles import cycle_step
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import cycle_config, solve_experiment
+
+    t_phase = time.perf_counter()
+    rec, fails = {}, []
+
+    # (a) the flagship at full width: struct_solve through the runner
+    opts = SolverOptions(problem="27pt", n=DRIVER_N, hierarchy="structured")
+    exp, st, counts = run_driver(opts, device)
+    x = st.x.cpu().numpy()
+    b_np = np.random.default_rng(0).random(exp.prob.n)
+    true_rel = true_rel_residual(exp.prob, x, b_np)
+    plain, pcounts = plain_driver_solve(exp.hier, exp, device)
+    dx = float(np.linalg.norm(x - plain.x.cpu().numpy()) / np.linalg.norm(plain.x.cpu().numpy()))
+    log(f"(a) run_experiment 27pt {DRIVER_N}^3 structured ({st.n} dofs, levels {st.level_n}): "
+        f"setup {st.setup_wtime:.2f} s, solve {st.solve_wtime:.4f} s, cycles {st.cycles} "
+        f"(plain composition {plain.iters}), rel_res {st.rel_resnorm:.4e}, true rel_res "
+        f"{true_rel:.4e}, |x - x_plain|/|x_plain| {dx:.3e}; launches {counts}, plain {pcounts}")
+    r = {"n": st.n, "level_n": st.level_n, "setup_s": st.setup_wtime, "solve_s": st.solve_wtime,
+         "cycles": st.cycles, "plain_cycles": plain.iters, "rel_res": st.rel_resnorm,
+         "true_rel_res": true_rel, "dx": dx, "counts": counts,
+         "host_ms_per_cycle_in_solve": st.solve_wtime / max(st.cycles, 1) * 1e3}
+    r.update(log_profile("(a) V(1,1) solve through the runner",
+                         solve_profile(lambda: solve_experiment(exp), st.cycles)))
+    rec["a v11"] = r
+    if min(counts[k] for k in ("K1", "K3", "K4")) == 0 or max(pcounts.values()) > 0:
+        fails.append("(a) V(1,1): K1 box, K3 or K4 not launched, or the plain composition "
+                     "launched a kernel")
+    if not true_rel <= 1e-8 or st.cycles != plain.iters or dx > 1e-10:
+        fails.append("(a) V(1,1): true residual > 1e-8, or not the plain composition's cycles "
+                     "and x")
+    # V(3,3) by the sweep flags, on the same hierarchy (no option that
+    # differs reaches the setup)
+    exp33 = dataclasses.replace(exp, opts=dataclasses.replace(
+        exp.opts, num_pre_smooth_sweeps=3, num_post_smooth_sweeps=3))
+    _, st33, c33 = run_driver(exp33.opts, device, exp=exp33)
+    x33 = st33.x.cpu().numpy()
+    true33 = true_rel_residual(exp.prob, x33, b_np)
+    plain33, p33 = plain_driver_solve(exp.hier, exp33, device)
+    dx33 = float(np.linalg.norm(x33 - plain33.x.cpu().numpy())
+                 / np.linalg.norm(plain33.x.cpu().numpy()))
+    log(f"(a) V(3,3) through the runner: cycles {st33.cycles} (plain composition "
+        f"{plain33.iters}), true rel_res {true33:.4e}, |x - x_plain|/|x_plain| {dx33:.3e}, solve "
+        f"{st33.solve_wtime:.4f} s; launches {c33}, plain {p33}")
+    r = {"cycles": st33.cycles, "plain_cycles": plain33.iters, "true_rel_res": true33,
+         "dx": dx33, "counts": c33, "solve_s": st33.solve_wtime}
+    r.update(log_profile("(a) V(3,3) solve through the runner",
+                         solve_profile(lambda: solve_experiment(exp33), st33.cycles)))
+    rec["a v33"] = r
+    if c33["K1 taps"] == 0 or max(p33.values()) > 0:
+        fails.append("(a) V(3,3): K1's tap route not launched, or the plain composition launched "
+                     "a kernel")
+    if not true33 <= 1e-8 or st33.cycles != plain33.iters or dx33 > 1e-10:
+        fails.append("(a) V(3,3): true residual > 1e-8, or not the plain composition's cycles "
+                     "and x")
+    flagship_cycles = st.cycles
+    del exp, exp33, st, st33, plain, plain33
+    torch.cuda.empty_cache()
+
+    # (b) the JAX bench's elasticity solve (V(2,2) hybrid JGS, 157k) and the
+    # same with L1-Jacobi (phase 8's), through the runner on config11's and
+    # config10's options with the bench's sweeps
+    eref = load_json(ELAST_REF)["jgs"]
+    for name, smoother, want in (("jgs", "hybrid_jgs", eref["iters"]), ("l1", "l1_jacobi", 20)):
+        o = SolverOptions(problem="elasticity", nx=BEAM[0], ny=BEAM[1], nz=BEAM[2],
+                          elast_bc="identity", hierarchy="structured", smoother=smoother,
+                          mixed_precision=True, tol=1e-5, num_cycles=60,
+                          num_pre_smooth_sweeps=2, num_post_smooth_sweeps=2)
+        exp, st, counts = run_driver(o, device)
+        prob = exp.prob
+        bb = prob.rhs / np.linalg.norm(prob.rhs)
+        tr = true_rel_residual(prob, st.x.cpu().numpy(), bb)
+        log(f"(b) run_experiment elasticity {BEAM} {smoother} V(2,2) mixed ({st.n} dofs): setup "
+            f"{st.setup_wtime:.2f} s, level_n {st.level_n} (phase 12 / reference "
+            f"{eref['level_n']}), iterations {st.cycles} (want {want} +-1), true rel_res "
+            f"{tr:.4e}, solve {st.solve_wtime:.4f} s; launches {counts}")
+        r = {"iters": st.cycles, "want": want, "true_rel_res": tr, "setup_s": st.setup_wtime,
+             "solve_s": st.solve_wtime, "counts": counts, "level_n": st.level_n}
+        r.update(log_profile(f"(b) {smoother} solve through the runner",
+                             solve_profile(lambda: solve_experiment(exp), st.cycles)))
+        rec[f"b {name}"] = r
+        if counts["K5"] == 0 or abs(st.cycles - want) > 1 or not tr <= 1e-5 \
+                or st.level_n != eref["level_n"] or st.level_nnz != eref["level_nnz"]:
+            fails.append(f"(b) elasticity {smoother}: K5, iterations, true residual or shapes")
+        del exp, st
+    torch.cuda.empty_cache()
+
+    # (c) the single-device goldens through the runner on the card
+    for name in DRIVER_GOLDENS_F64 + DRIVER_GOLDENS_ASYNC:
+        g = load_json(f"tests/golden/{name}.json")
+        _, st, counts = run_driver(SolverOptions(**g["config"]), device)
+        h, w = np.asarray(st.history), np.asarray(g["history"])
+        if name in DRIVER_GOLDENS_ASYNC:
+            ok = st.rel_resnorm <= g["config"].get("tol", 1e-8) and \
+                abs(st.cycles - g["cycles"]) <= 0.25 * g["cycles"]
+            dev = None
+        else:
+            dev = float(np.max(np.abs(h[:5] - w[:5]) / w[:5]))
+            ok = st.cycles == g["cycles"] and st.level_n == g["level_n"] and \
+                st.level_nnz == g["level_nnz"] and np.allclose(h[:5], w[:5], rtol=1e-10,
+                                                               atol=1e-14)
+        log(f"(c) {name}: cycles {st.cycles} (golden {g['cycles']}), level_n {st.level_n}, "
+            f"rel_res {st.rel_resnorm:.4e}, history[:5] max rel deviation {dev}, setup "
+            f"{st.setup_wtime:.3f} s, solve {st.solve_wtime:.3f} s {'ok' if ok else 'FAIL'}")
+        rec[f"c {name}"] = {"cycles": st.cycles, "golden": g["cycles"], "head_dev": dev,
+                            "rel_res": st.rel_resnorm, "ok": bool(ok)}
+        if not ok:
+            fails.append(f"(c) golden {name} through the runner")
+
+    # (d) the CLI in a process of its own
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "amg_tpu_torch.utils.cli", "-problem", "27pt",
+                          "-n", str(DRIVER_N), "-hierarchy", "structured", "-oneline_output"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    try:
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        line = {}
+    log(f"(d) python3 -m amg_tpu_torch.utils.cli ... -oneline_output: rc {out.returncode}, "
+        f"{cli_s:.1f} s, {line}")
+    rec["d cli"] = dict(line, rc=out.returncode, s=cli_s)
+    if out.returncode != 0 or line.get("cycles") != flagship_cycles or \
+            not line.get("rel_res", 1.0) <= 1e-8:
+        fails.append("(d) the CLI's one-line result: not (a)'s cycles or rel_res > 1e-8")
+        log(out.stderr[-2000:])
+
+    # (e) -print_level_stats on the generic MULT solve
+    o = SolverOptions(problem="27pt", n=DRIVER_PHASE_N, print_level_stats=True)
+    exp, st, counts = run_driver(o, device)
+    b = torch.from_numpy(np.random.default_rng(o.seed).random(st.n)).to(device)
+    xc = torch.zeros_like(b)
+    cfg = cycle_config(exp.opts, exp.smoother)
+    for _ in range(st.phase.cycles):
+        xc = cycle_step(exp.hier, cfg, xc, b)
+    dxe = float(torch.linalg.norm(st.phase._x - xc) / torch.linalg.norm(xc))
+    log(f"(e) run_experiment 27pt {DRIVER_PHASE_N}^3 -print_level_stats: cycles {st.cycles}, "
+        f"rel_res {st.rel_resnorm:.4e}, setup {st.setup_wtime:.2f} s, solve {st.solve_wtime:.3f}"
+        f" s; the segmented profile's x after {st.phase.cycles} cycles against cycle_step's: "
+        f"{dxe:.3e}; launches {counts}")
+    st.phase.print_table()
+    rec["e phases"] = {"cycles": st.cycles, "dx": dxe, "totals": st.phase.totals(),
+                       "smooth": st.phase.smooth, "residual": st.phase.residual,
+                       "restrict": st.phase.restrict, "prolong": st.phase.prolong}
+    if dxe > 1e-12 or not st.rel_resnorm <= 1e-8:
+        fails.append("(e) the segmented profile is not the production cycle, or no convergence")
+    del exp, st, b, xc
+    torch.cuda.empty_cache()
+
+    # (f) vardifconv on the structured hierarchy: float64 DIA levels on K5
+    o = SolverOptions(problem="vardifconv", n=DRIVER_VARDIFCONV_N, hierarchy="structured")
+    exp, st, counts = run_driver(o, device)
+    plain_hier, _ = plain_dia_hierarchy(exp.hier)
+    plain, pcounts = plain_driver_solve(plain_hier, exp, device)
+    dxf = float(torch.linalg.norm(st.x - plain.x) / torch.linalg.norm(plain.x))
+    log(f"(f) run_experiment vardifconv {DRIVER_VARDIFCONV_N}^3 structured ({st.n} dofs, levels "
+        f"{st.level_n}): setup {st.setup_wtime:.2f} s, cycles {st.cycles} (plain composition "
+        f"{plain.iters}), rel_res {st.rel_resnorm:.4e}, |x - x_plain|/|x_plain| {dxf:.3e}, solve "
+        f"{st.solve_wtime:.3f} s; launches {counts}, plain {pcounts}")
+    r = {"cycles": st.cycles, "plain_cycles": plain.iters, "rel_res": st.rel_resnorm,
+         "dx": dxf, "counts": counts, "setup_s": st.setup_wtime, "solve_s": st.solve_wtime}
+    r.update(log_profile("(f) vardifconv solve through the runner",
+                         solve_profile(lambda: solve_experiment(exp), st.cycles)))
+    rec["f vardifconv"] = r
+    if counts["K5"] == 0 or not st.rel_resnorm <= 1e-8 or st.cycles != plain.iters \
+            or max(pcounts.values()) > 0:
+        fails.append("(f) vardifconv: K5 not launched, rel_res > 1e-8 or not the plain "
+                     "composition's cycles")
+    del exp, st, plain_hier, plain
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"drivers phase: {rec['phase_s']:.1f} s")
+    return rec, fails
+
+
 def main() -> int:
     import torch
 
@@ -2271,6 +2512,11 @@ def main() -> int:
     if fgen:
         log("generic AMG path FAILED:", fgen)
         return 1
+    log("the drivers (run_experiment, the CLI):")
+    drv, fdrv = drivers_phase(device)
+    if fdrv:
+        log("drivers phase FAILED:", fdrv)
+        return 1
 
     cycle = cycle_phase(hier32, cfg, b32, device)
     timings = timing_phase(hier32, device, counts, res.iters)
@@ -2334,6 +2580,7 @@ def main() -> int:
     log(json.dumps({"sa": sa}))
     log(json.dumps({"ams": amsr}))
     log(json.dumps({"generic": gen}))
+    log(json.dumps({"drivers": drv}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

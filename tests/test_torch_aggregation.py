@@ -35,8 +35,8 @@ from amg_tpu.solve import driver as rdrv
 from amg_tpu_torch.problems.elasticity import elasticity_beam
 from amg_tpu_torch.setup import aggregation as pagg
 from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
-from amg_tpu_torch.solve import driver as pdrv
-from amg_tpu_torch.solve.cycles import CycleConfig
+from amg_tpu_torch.utils.config import SolverOptions
+from amg_tpu_torch.utils.runner import run_experiment
 
 torch.set_num_threads(1)
 
@@ -106,25 +106,19 @@ def test_golden_config8_through_the_port_alone():
     with open(os.path.join(GOLDEN_DIR, "config8_elasticity_sa_pcg.json")) as f:
         g = json.load(f)
     c = g["config"]
-    prob = elasticity_beam(nx=c["nx"], ny=c["ny"])
     # the runner's fix-up for elasticity: setup "auto" -> "sa", MULT under PCG
-    params = HierarchyParams(num_functions=2, setup_type="sa")
-    hh, hier = build_hierarchy(prob.A, params, near_nullspace=prob.near_nullspace,
-                               device="cpu")
-    st = hh.stats()
-    assert st["n"] == g["level_n"] and st["nnz"] == g["level_nnz"]
-    np.testing.assert_allclose(st["operator_complexity"], g["operator_complexity"], rtol=1e-12)
-    b = torch.from_numpy(prob.rhs / np.linalg.norm(prob.rhs))
-    res = pdrv.solve(hier, CycleConfig(), b, torch.zeros_like(b), tol=1e-8, max_cycles=200,
-                     outer="pcg", device="cpu")
-    assert res.iters == g["cycles"]
-    got, want = np.asarray(res.history_list()), np.asarray(g["history"])
+    st = run_experiment(SolverOptions(**c), device="cpu")
+    assert st.level_n == g["level_n"] and st.level_nnz == g["level_nnz"]
+    np.testing.assert_allclose(st.operator_complexity, g["operator_complexity"], rtol=1e-12)
+    assert st.cycles == g["cycles"]
+    got, want = np.asarray(st.history), np.asarray(g["history"])
     np.testing.assert_allclose(got[:5], want[:5], **HIST)
     # the reference's own history with one entry of b moved by one ulp
+    prob = elasticity_beam(nx=c["nx"], ny=c["ny"])
     whh, wh = rhi.build_hierarchy(r_beam(nx=c["nx"], ny=c["ny"]).A,
                                   rhi.HierarchyParams(num_functions=2, setup_type="sa"),
                                   near_nullspace=prob.near_nullspace)
-    bp = b.numpy().copy()
+    bp = prob.rhs / np.linalg.norm(prob.rhs)
     i = int(np.argmax(np.abs(bp)))
     bp[i] = np.nextafter(bp[i], np.inf)
     moved = rdrv.solve(wh, RCfg(), jnp.asarray(bp), jnp.zeros(len(bp)), tol=1e-8,

@@ -32,8 +32,10 @@ from amg_tpu.setup.hierarchy import _format_converter as r_format
 from amg_tpu.solve import ams as rams
 from amg_tpu_torch.convert import ams_from_arrays, matrix_from_arrays
 from amg_tpu_torch.problems.maxwell import maxwell_curlcurl
-from amg_tpu_torch.setup.hierarchy import HierarchyParams, _format_converter, build_hierarchy
+from amg_tpu_torch.setup.hierarchy import HierarchyParams, _format_converter
 from amg_tpu_torch.solve import ams as pams
+from amg_tpu_torch.utils.config import SolverOptions
+from amg_tpu_torch.utils.runner import run_experiment
 from torch_parity import (
     JaxAMSDraws,
     export_jax_ams,
@@ -113,16 +115,10 @@ def test_golden_config5_through_the_port_alone():
     with open(os.path.join(GOLDEN_DIR, "config5_maxwell_ams.json")) as f:
         g = json.load(f)
     assert g["config"]["outer_solver"] == "ams_pcg"
-    prob = maxwell_curlcurl(g["config"]["nx"])
     # the runner's hierarchy on the edge matrix, which its stats report (the
     # AMS solve builds its own nodal hierarchies)
-    hh, _ = build_hierarchy(prob.A, HierarchyParams(), device="cpu")
-    st = hh.stats()
-    assert st["n"] == g["level_n"] and st["nnz"] == g["level_nnz"]
-    np.testing.assert_allclose(st["operator_complexity"], g["operator_complexity"], rtol=1e-12)
-    ams, cfg = pams.build_ams(prob.A, prob.aux["G"], Pi=prob.aux["Pi"], device="cpu")
-    b = prob.rhs / np.linalg.norm(prob.rhs)  # the runner's b for a generator's load
-    res = pams.solve_ams_pcg(_edge_op(prob.A), ams, cfg, b, max_iters=200, device="cpu")
-    assert res.iters == g["cycles"]
-    h = res.history.numpy()
-    np.testing.assert_allclose(h[~np.isnan(h)], np.asarray(g["history"]), **HIST)
+    st = run_experiment(SolverOptions(**g["config"]), device="cpu")
+    assert st.level_n == g["level_n"] and st.level_nnz == g["level_nnz"]
+    np.testing.assert_allclose(st.operator_complexity, g["operator_complexity"], rtol=1e-12)
+    assert st.cycles == g["cycles"]
+    np.testing.assert_allclose(np.asarray(st.history), np.asarray(g["history"]), **HIST)

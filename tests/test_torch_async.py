@@ -11,8 +11,8 @@ history at rtol 1e-10 / atol 1e-14, x and the grid-wait summary.
     residuals, wait-counter firing, a delayed level, a fail window,
     comm_every 2 with both reads, Chebyshev and Richardson, delay 0;
   * goldens config3 (27-point 12^3, 108 steps) and config13 (32^3,
-    Chebyshev, 139 steps) through the port alone, the reference's draws
-    for PRNGKey(0) replayed;
+    Chebyshev, 139 steps) through the port alone (its `run_experiment`),
+    the reference's draws for PRNGKey(0) replayed;
   * `async_smooth_solve` in its fixed, southwell_exp, southwell_inv and
     sps_min_prob modes: history and block_updates;
   * `ext_solve` on the explicit and implicit extended system, sync and
@@ -39,7 +39,7 @@ from amg_tpu.solve.accel import estimate_cycle_eigs as r_eigs
 from amg_tpu.solve.cycles import CycleConfig as RCfg
 from amg_tpu.solve.cycles import CycleType as RType
 from amg_tpu.solve.driver import cheby_setup as r_cheby_setup
-from amg_tpu_torch.problems.laplacian import laplacian_2d_5pt, laplacian_3d_27pt
+from amg_tpu_torch.problems.laplacian import laplacian_2d_5pt
 from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
 from amg_tpu_torch.smooth.smoothers import SmootherType
 from amg_tpu_torch.solve import async_sim as pas
@@ -48,6 +48,8 @@ from amg_tpu_torch.solve import extended as pext
 from amg_tpu_torch.solve.accel import estimate_cycle_eigs as p_eigs
 from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
 from amg_tpu_torch.solve.driver import cheby_setup as p_cheby_setup
+from amg_tpu_torch.utils.config import SolverOptions
+from amg_tpu_torch.utils.runner import run_experiment
 from torch_parity import JaxAsyncDraws, JaxExtDraws, JaxSmoothDraws, async_options, \
     port_hierarchy
 
@@ -155,24 +157,16 @@ def test_async_accel_needs_bounds(p5):
 
 @pytest.mark.parametrize("name", ["config3_27pt_async_multadd", "config13_27pt_medium_async"])
 def test_async_golden_through_the_port_alone(name):
-    """The runner's async_multadd from the golden's configuration, on the
-    port's own hierarchy, with the reference's draws for PRNGKey(0)."""
+    """The golden's async_multadd through the port's run_experiment, with the
+    reference's draws for PRNGKey(0)."""
     with open(os.path.join(GOLDEN_DIR, name + ".json")) as f:
         g = json.load(f)
     o = g["config"]
     assert o["problem"] == "27pt" and o["solver"] == "async_multadd" and o["seed"] == 0
-    prob = laplacian_3d_27pt(o["n"])
-    hh, hier = build_hierarchy(prob.A, HierarchyParams(), fine_stencil=prob.stencil,
-                               device="cpu")
-    st = hh.stats()
-    assert st["n"] == g["level_n"] and st["nnz"] == g["level_nnz"]
-    b = torch.from_numpy(np.random.default_rng(0).random(prob.n))
-    kw = async_options(hier, PCFG, _port_cheby_setup, accel=o.get("accel", "richardson"))
-    res = pas.async_solve(hier, PCFG, pas.AsyncConfig(**kw), b, draws=JaxAsyncDraws(0),
-                          tol=1e-8, max_cycles=200, device="cpu")
-    assert res.iters == g["cycles"]
-    np.testing.assert_allclose(np.asarray(res.history_list()), np.asarray(g["history"]),
-                               **HIST)
+    st = run_experiment(SolverOptions(**o), device="cpu", draws=JaxAsyncDraws(0))
+    assert st.level_n == g["level_n"] and st.level_nnz == g["level_nnz"]
+    assert st.cycles == g["cycles"]
+    np.testing.assert_allclose(np.asarray(st.history), np.asarray(g["history"]), **HIST)
 
 
 SMOOTH = {

@@ -22,11 +22,15 @@ The elasticity and Maxwell preconditioners: hybrid JGS on the DIA beam
 and the async AMS solve, and `mixed_solve`, each on the card against the
 port on the CPU.
 
+The drivers: `run_experiment` of the structured 27-point problem at 64^3
+on the card (K1, K3 and K4 launched) against the CPU, and golden config10's
+options on the card (K5 launched, 20 +- 1 iterations).
+
 Marked `cuda`; without a card every test skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
     # -k k1, -k k2, -k box, -k taps, -k k3, -k k4, -k k5, -k generic, -k async,
-    # -k "sa or ams or jgs or mixed_solve"
+    # -k "sa or ams or jgs or mixed_solve", -k run_experiment
 
 Tolerances: float64 to 1e-12 and float32 to 1e-5, relative to the largest
 interior value, the zero shell exactly; where the kernel rounds every
@@ -802,3 +806,53 @@ def test_mixed_solve_on_the_card_equals_the_cpu(device):
     assert gpu.iters == cpu.iters and gpu.rel_resnorm <= 1e-8
     x = cpu.x.numpy()
     assert np.linalg.norm(gpu.x.cpu().numpy() - x) <= 1e-6 * np.linalg.norm(x)
+
+
+def test_run_experiment_struct_on_the_card_equals_the_cpu(device):
+    """The runner's structured 27-point solve at 64^3 (the smallest side whose
+    path launches K3 and K4: the zero-guess pair at the 32^3 constant level;
+    the fine level fuses its transfers from 96 up): on the card through
+    struct_solve (K1 box, K3, K4 launched), on the CPU through the plain
+    cycle; the same cycles and x within 1e-10."""
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import run_experiment
+
+    opts = dict(problem="27pt", n=64, hierarchy="structured")
+    cpu = run_experiment(SolverOptions(**opts), device="cpu")
+    before = (ts.stencil_kernel_padded.launches, tt.residual_restrict_padded.launches,
+              tt.prolong_sweep_padded.launches)
+    gpu = run_experiment(SolverOptions(**opts), device=device)
+    after = (ts.stencil_kernel_padded.launches, tt.residual_restrict_padded.launches,
+             tt.prolong_sweep_padded.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert gpu.cycles == cpu.cycles and gpu.rel_resnorm <= 1e-8
+    assert gpu.level_n == cpu.level_n and gpu.level_nnz == cpu.level_nnz
+    x = cpu.x.numpy()
+    assert np.linalg.norm(gpu.x.cpu().numpy() - x) <= 1e-10 * np.linalg.norm(x)
+
+
+def test_run_experiment_config10_on_the_card(device):
+    """Golden config10's options (the 49,179-dof beam, float32 DIA hierarchy
+    under mixed_pcg) through the runner on the card: K5 launched, the
+    golden's level sizes, 20 +- 1 iterations (ROADMAP F1), a true float64
+    residual <= 1e-5."""
+    import json
+    import os
+
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import run_experiment
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                           "config10_elasticity_dia_mixed.json")) as f:
+        g = json.load(f)
+    c = g["config"]
+    before = tvs.var_stencil_kernel_padded.launches
+    st = run_experiment(SolverOptions(**c), device=device)
+    assert tvs.var_stencil_kernel_padded.launches > before
+    assert st.level_n == g["level_n"] and st.level_nnz == g["level_nnz"]
+    assert abs(st.cycles - g["cycles"]) <= 1
+    prob = elasticity_beam(nx=c["nx"], ny=c["ny"], nz=c["nz"], bc=c["elast_bc"])
+    b = prob.rhs / np.linalg.norm(prob.rhs)
+    x = st.x.cpu().numpy()
+    assert np.linalg.norm(b - prob.A @ x) / np.linalg.norm(b) <= 1e-5

@@ -411,26 +411,18 @@ def test_golden_dia_mixed_through_the_port_alone(name):
     import json
     import os
 
-    from amg_tpu_torch.solve.mixed import mixed_pcg
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import run_experiment
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                            name + ".json")) as f:
         g = json.load(f)
     c = g["config"]
-    smoother = SmootherType(c.get("smoother", "l1_jacobi"))
+    st = run_experiment(SolverOptions(**c), device="cpu")
+    assert st.level_n == g["level_n"] and st.level_nnz == g["level_nnz"]
+    assert abs(st.cycles - g["cycles"]) <= 1
     prob = elasticity_beam(nx=c["nx"], ny=c["ny"], nz=c["nz"], bc=c["elast_bc"])
-    nodes = (c["nx"] + 1, c["ny"] + 1, c["nz"] + 1)
-    hh, th = tst.build_dia_structured_hierarchy(
-        prob.A, nodes, num_functions=3,
-        params=HierarchyParams(num_functions=3, smoother=smoother, dtype=torch.float32),
-        device="cpu")
-    st = hh.stats()
-    assert st["n"] == g["level_n"] and st["nnz"] == g["level_nnz"]
-    A64 = tst.DiaKernelOperator.from_var_stencil(tst.csr_to_dia_stencil(prob.A, prob.grid_shape))
     b = prob.rhs / np.linalg.norm(prob.rhs)
-    res = mixed_pcg(th, A64, CycleConfig(smoother=smoother), b, tol=c["tol"],
-                    max_cycles=c["num_cycles"], device="cpu")
-    assert abs(res.iters - g["cycles"]) <= 1
-    x = res.x.numpy()
+    x = st.x.numpy()
     assert np.linalg.norm(b - prob.A @ x) / np.linalg.norm(b) <= 1e-5
-    np.testing.assert_allclose(res.history_list()[:5], g["history"][:5], rtol=0.1)
+    np.testing.assert_allclose(st.history[:5], g["history"][:5], rtol=0.1)

@@ -229,3 +229,77 @@ def test_sa_ams_and_mixed_entry_points_default_to_cuda_and_raise_without_it(monk
     with pytest.raises(ValueError, match="hierarchy lives on"):
         mixed_solve(hier, lap.stencil, CycleConfig(), b, device="meta")
     assert mixed_solve(hier, lap.stencil, CycleConfig(), b, max_cycles=2, device="cpu").iters == 2
+
+
+def test_driver_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from amg_tpu_torch.utils import cli
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import run_experiment, setup_experiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_experiment(SolverOptions(problem="5pt", n=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        setup_experiment(SolverOptions(problem="5pt", n=8))
+    # the CLI's default -device is "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-problem", "5pt", "-n", "8"])
+    assert cli.main(["-problem", "5pt", "-n", "8", "-oneline_output", "-device", "cpu"]) == 0
+    assert run_experiment(SolverOptions(problem="5pt", n=8), device="cpu").cycles > 0
+
+
+@pytest.mark.parametrize("opts,err,match", [
+    ({"num_devices": 2}, NotImplementedError, "item 11"),
+    ({"num_devices": 8, "solver": "async_multadd"}, NotImplementedError, "item 11"),
+    ({"device_format": "bsr"}, ValueError, "Not ported"),
+], ids=["rows", "grid", "bsr"])
+def test_the_runner_refuses_what_is_not_ported(opts, err, match):
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import run_experiment
+
+    with pytest.raises(err, match=match):
+        run_experiment(SolverOptions(problem="5pt", n=8, **opts), device="cpu")
+
+
+def test_the_driver_modules_load_no_jax():
+    code = (
+        "import sys\n"
+        "import amg_tpu_torch.utils.cli, amg_tpu_torch.utils.runner\n"
+        "import amg_tpu_torch.utils.phases, amg_tpu_torch.utils.checkpoint\n"
+        "import amg_tpu_torch.problems.amr, amg_tpu_torch.problems.io\n"
+        "from amg_tpu_torch.problems import difconv_3d, vardifconv_3d\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'amg_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_struct_branch_needs_the_card_and_a_constant_stencil():
+    """ROADMAP F10: the fused structured solve runs on the CUDA device with a
+    constant-stencil level 0 only; a DIA level 0 (vardifconv on the
+    structured hierarchy) takes the generic cycle. A pure predicate: no card
+    is needed to ask it."""
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt, vardifconv_3d
+    from amg_tpu_torch.setup.structured import DiaKernelOperator, csr_to_dia_stencil
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import takes_struct_solve
+
+    stencil = laplacian_3d_27pt(6).stencil
+    vd = vardifconv_3d(6)
+    dia = DiaKernelOperator.from_var_stencil(csr_to_dia_stencil(vd.A, vd.grid_shape))
+    opts = SolverOptions(hierarchy="structured").fixup()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    l1, jgs = SmootherType.L1_JACOBI, SmootherType.HYBRID_JGS
+    assert takes_struct_solve(opts, l1, cuda, stencil)
+    assert takes_struct_solve(opts, SmootherType.JACOBI, cuda, stencil)
+    assert not takes_struct_solve(opts, l1, cuda, dia)
+    assert not takes_struct_solve(opts, l1, cpu, stencil)
+    assert not takes_struct_solve(opts, jgs, cuda, stencil)
+    for other in (dict(solver="multadd"), dict(mixed_precision=True), dict(accel="cheby"),
+                  dict(outer_solver="pcg"), dict(hierarchy="algebraic")):
+        o = SolverOptions(**dict(dict(hierarchy="structured"), **other)).fixup()
+        assert not takes_struct_solve(o, l1, cuda, stencil), other

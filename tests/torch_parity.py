@@ -210,24 +210,18 @@ class JaxExtDraws:
 
 def async_options(hier, cfg, cheby_setup, async_type="full", sim_read_delay=4,
                   accel="richardson", comm_every=1, cheby_grid=0, **kw):
-    """The AsyncConfig keywords that the reference's runner derives for an
-    async additive solve (amg_tpu/utils/runner.py:492-570), for either
-    package (`cheby_setup` is that package's): acceleration defaults to
-    Richardson for async (amg_tpu/utils/config.py:263-272); mu and delta
-    come from cheby_setup(num_iters=20) on the MULTADD cfg, delta damped
-    0.4x under FULL staleness, 0.6x under SEMI and not at all at delay 0;
-    with comm_every > 1 the scalar omega instead."""
+    """The AsyncConfig keywords that the runner derives for an async additive
+    solve, for either package (`cheby_setup` is that package's): the bounds
+    of cheby_setup(num_iters=20) on the MULTADD cfg through the port's
+    runner (`amg_tpu_torch/utils/runner.py::async_accel_options`)."""
+    from amg_tpu_torch.utils.runner import async_accel_options
+
     kw = dict(kw, async_type=async_type, sim_read_delay=sim_read_delay, comm_every=comm_every)
     if accel not in ("cheby", "richardson"):
         return kw
     coeffs = cheby_setup(hier, cfg, num_iters=20)
-    if comm_every > 1:
-        return dict(kw, omega=0.5 * 2.0 / (coeffs.alpha + coeffs.beta))
-    damp = 0.4 if async_type == "full" else 0.6
-    if sim_read_delay == 0:
-        damp = 1.0
-    return dict(kw, accel=accel, cheby_grid=cheby_grid, cheby_mu=coeffs.mu,
-                cheby_delta=coeffs.delta * damp)
+    return dict(kw, **async_accel_options(coeffs, accel, async_type, sim_read_delay,
+                                          comm_every, cheby_grid))
 
 
 class JaxAMSDraws:
