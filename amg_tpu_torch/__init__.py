@@ -23,4 +23,9 @@ for the elasticity path; `setup.hierarchy.build_hierarchy`,
 `solve.driver.solve` and `solve.driver.cheby_setup` for the generic path)
 every entry point runs on the CUDA device unless the caller passes
 `device="cpu"`.
+
+`parallel/` runs the row-partitioned multi-device path over a mesh of D
+logical shards (`parallel.dist.make_row_mesh`), in one process or spread
+over the processes of a torch.distributed group; no kernel runs there, as
+in the reference.
 """

@@ -33,6 +33,18 @@ bs, bs).
 
 plus the dense `coarse_Ainv` of the coarsest level.
 
+A halo operator of the row-sharded path crosses over onto a mesh
+(`halo_from_arrays`, parallel.dist.RowMesh) from the reference's arrays of
+all D shards, of which the mesh's process keeps its own:
+
+    {"kind": "halo_ell", "cols", "vals" (D, n_loc, k), "send_idx" (D, m, S)
+     or (D, D, S), "ghost_map" (D, G), "offsets", "perms", "shape"[,
+     "wire_send", "payload_send"]}
+    | {"kind": "halo_bsr", "block_cols" (D, nrb_loc, kb), "blocks"
+       (D, nrb_loc, kb, bm, bn), "send_idx", "ghost_map", "offsets",
+       "perms", "shape"}
+    | {"kind": "halo_stencil", "base": a "stencil" / "var" operator dict}
+
 The AMS preconditioner's state crosses over the same way
 (`ams_from_arrays`): {"G", "Gt"[, "Pi", "Pit"]} matrix dicts as above,
 "inv_wscale" (n_edges,), and "node"[, "pi"] as (levels, coarse_Ainv) of the
@@ -145,3 +157,29 @@ def ams_from_arrays(arrays: dict, dtype=torch.float64, device=None):
         node_hier=hierarchy_from_arrays(*arrays["node"], dtype=dtype, device=device),
         **pi,
     )
+
+
+def halo_from_arrays(arrays: dict, mesh, dtype=torch.float64):
+    """The port's HaloELL / HaloBSR / HaloStencilOperator on `mesh` in
+    `dtype`, from the reference's float64 / index arrays of all D shards."""
+    from amg_tpu_torch.parallel.halo import make_halo_stencil
+    from amg_tpu_torch.parallel.spcomm import halo_bsr_of, halo_ell_of
+
+    kind = arrays["kind"]
+    if kind == "halo_stencil":
+        return make_halo_stencil(operator_from_arrays(arrays["base"], dtype, mesh.device), mesh)
+    mine = slice(mesh.first_shard, mesh.first_shard + mesh.local_devices)
+    common = dict(send_idx=np.asarray(arrays["send_idx"], np.int32),
+                  ghost_map=np.asarray(arrays["ghost_map"], np.int32),
+                  offsets=tuple(int(o) for o in arrays["offsets"]),
+                  perms=tuple(tuple((int(p), int(d)) for p, d in perm)
+                              for perm in arrays["perms"]),
+                  shape=tuple(int(n) for n in arrays["shape"]), mesh=mesh, dtype=dtype)
+    if kind == "halo_ell":
+        return halo_ell_of(np.asarray(arrays["cols"])[mine], np.asarray(arrays["vals"])[mine],
+                           wire_send=tuple(arrays.get("wire_send", ())),
+                           payload_send=tuple(arrays.get("payload_send", ())), **common)
+    if kind == "halo_bsr":
+        return halo_bsr_of(np.asarray(arrays["block_cols"])[mine],
+                           np.asarray(arrays["blocks"])[mine], **common)
+    raise ValueError(f"unknown halo operator kind {kind!r}")

@@ -13,7 +13,8 @@ cost-model BSR tile; level 0 keeps its stencil or DIA operator), and so do
 the additive cycles' transfers (smoothed P~/R~, AFACj ideal P_id/R_id);
 `convert.hierarchy_from_arrays` puts them on the device in the solve dtype;
 the coarsest A becomes a dense inverse applied by one matmul. The injection
-restriction R_inj stays on the host (only the multi-device paths read it).
+restriction R_inj stays on the host (only the grid-parallel path reads it,
+ROADMAP item 11b).
 `Level`/`Hierarchy` hold the device side of both this builder and the
 structured ones (`setup/structured.py`).
 """
@@ -98,7 +99,12 @@ class Level(NamedTuple):
 
 class Hierarchy(NamedTuple):
     levels: Tuple[Level, ...]
-    coarse_Ainv: torch.Tensor  # dense inverse of the coarsest operator
+    # dense inverse of the coarsest operator (parallel.dist.ReplicatedInverse
+    # on a mesh that spans processes)
+    coarse_Ainv: Any
+    # the parallel.dist.RowMesh of a row-sharded hierarchy (None: one device);
+    # its solves take their dots and norms from it
+    mesh: Any = None
 
     @property
     def num_levels(self) -> int:
@@ -261,7 +267,7 @@ def build_host_hierarchy(A: CSRMatrix, params: HierarchyParams) -> HostHierarchy
 
 
 # the host transfers that go to the device; R_inj stays on the host (only
-# the multi-device paths read it)
+# the grid-parallel path reads it, ROADMAP item 11b)
 DEVICE_TRANSFERS = ("P", "R", "P_s", "R_s", "P_id", "R_id")
 
 

@@ -643,6 +643,7 @@ def build_dia_structured_hierarchy(
     smooth_weight=None,
     device=None,
     sweep_coef_dtype=None,
+    use_kernel: bool = True,
 ):
     """Geometric hierarchy for a variable-coefficient operator on a structured
     node grid with `num_functions` interleaved dofs per node (the identity-BC
@@ -662,7 +663,9 @@ def build_dia_structured_hierarchy(
     planes at that dtype (`DiaKernelOperator.with_sweep_dtype`). A
     `HierarchyParams` `params` overrides the keywords and gives the block
     smoothers their block_size and jgs_weight (`_params_overrides`); a given
-    `smooth_weight` replaces every level's 1 / rho(S^-1 A)."""
+    `smooth_weight` replaces every level's 1 / rho(S^-1 A). use_kernel=False
+    keeps every level the plain VarStencilOperator (no K5), as the
+    reference's multi-device runs keep its XLA form."""
     import scipy.sparse as sp
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
@@ -686,7 +689,7 @@ def build_dia_structured_hierarchy(
     while True:
         ns = node_shapes[-1]
         coeffs, offsets = _dia_arrays(A_csr, dia_shape(ns))
-        A_arr = {"kind": "dia", "coeffs": coeffs, "offsets": offsets,
+        A_arr = {"kind": "dia" if use_kernel else "var", "coeffs": coeffs, "offsets": offsets,
                  "grid_shape": dia_shape(ns)}
         hl = HostLevel(A=A_csr)
         hl.weight = smooth_weight if smooth_weight is not None \
@@ -734,6 +737,8 @@ def build_dia_structured_hierarchy(
     hh.arrays = (levels, coarse_Ainv)
     hier = hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
     if sweep_coef_dtype is not None:
+        if not use_kernel:
+            raise ValueError("sweep_coef_dtype narrows K5's sweep planes: it needs use_kernel")
         hier = hier._replace(levels=tuple(
             lv._replace(A=lv.A.with_sweep_dtype(sweep_coef_dtype)) for lv in hier.levels))
     return hh, hier

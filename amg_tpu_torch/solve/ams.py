@@ -21,9 +21,11 @@ draw source (per step, Lg firing and Lg column uniforms), makes every
 comparison and rounding itself and reads the device once a step (the stop
 test). A group that does not fire computes nothing.
 
-The sharded parts of the reference (build_sharded_ams, plan_ams_groups,
-ams_grid_parallel_solve, solve_sharded_ams_pcg) come with the multi-device
-slice.
+`build_sharded_ams` / `solve_sharded_ams_pcg` run AMS-PCG row-sharded over a
+mesh of D shards (`parallel.dist`): the edge operator, G, G^T (and Pi, Pi^T)
+as halo operators (`parallel.spcomm`), the nodal hierarchies as halo
+hierarchies. The reference's grid-parallel AMS groups (plan_ams_groups,
+ams_grid_parallel_solve) are ROADMAP queue 1 item 11b.
 """
 
 from __future__ import annotations
@@ -149,6 +151,92 @@ def solve_ams_pcg(
     x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
     return pcg(lambda v: A_dev @ v, lambda r: ams_precondition(ams, cfg, r), b, x0,
                tol=tol, max_iters=max_iters)
+
+
+def build_sharded_ams(
+    A_edge: CSRMatrix,
+    G: CSRMatrix,
+    mesh,
+    params: Optional[HierarchyParams] = None,
+    smoother_weight: Optional[float] = None,
+    Pi: Optional[CSRMatrix] = None,
+):
+    """Row-sharded AMS over `mesh` (a parallel.dist.RowMesh) with halo
+    comm, the distributed Maxwell path: the edge operator, the discrete
+    gradient G and its transpose as HaloELL operators (boundary segments
+    only), the nodal hierarchy on G^T A G as a halo hierarchy, and with Pi
+    the second auxiliary space sharded the same way. Edge vectors pad to a
+    multiple of the mesh (`dist.pad_unit`), the pad rows decoupled with a
+    unit diagonal.
+
+    Returns (A_halo, AMSData, node CycleConfig, pad_edge, pad_node); vectors
+    pad with parallel.dist.pad_vector(b, pad_edge, mesh)."""
+    from amg_tpu_torch.parallel.dist import _pad_csr, build_dist_hierarchy, pad_unit
+    from amg_tpu_torch.parallel.spcomm import build_halo_ell
+    from amg_tpu_torch.setup.hierarchy import build_host_hierarchy
+
+    if params is None:
+        params = HierarchyParams(keep_stencil_fine=False, device_format="ell")
+    dtype = params.dtype
+    E = A_edge.n_rows
+    As = A_edge.to_scipy().tocsr()
+    Gs = G.to_scipy().tocsr()
+    A_n = CSRMatrix.from_scipy((Gs.T @ (As @ Gs)).tocsr())
+    node_hier, pad_node = build_dist_hierarchy(build_host_hierarchy(A_n, params), params,
+                                               mesh, comm="halo")
+    unit = pad_unit(params, mesh)
+    E_pad = -(-E // unit) * unit
+    A_pad = _pad_csr(A_edge, E_pad, E_pad, unit_diag_from=E)
+    G_pad = _pad_csr(G, E_pad, pad_node[1])  # zero pad block: the pads decouple
+    scale = A_pad.l1_row_norms()  # pad rows: unit diagonal, scale 1
+    scale = np.where(scale == 0.0, 1.0, scale)
+    if smoother_weight is None:
+        smoother_weight = 1.0 / max(
+            estimate_rho_dinv_a(A_edge, seed=params.seed, scale=scale[:E]), 1e-12)
+    pi_kw = {}
+    if Pi is not None:
+        Pis = Pi.to_scipy().tocsr()
+        A_p = CSRMatrix.from_scipy((Pis.T @ (As @ Pis)).tocsr())
+        pi_hier, pad_pi = build_dist_hierarchy(build_host_hierarchy(A_p, params), params,
+                                               mesh, comm="halo")
+        Pi_pad = _pad_csr(Pi, E_pad, pad_pi[1])
+        pi_kw = dict(Pi=build_halo_ell(Pi_pad, mesh, dtype=dtype),
+                     Pit=build_halo_ell(Pi_pad.transpose(), mesh, dtype=dtype),
+                     pi_hier=pi_hier)
+    data = AMSData(
+        G=build_halo_ell(G_pad, mesh, dtype=dtype),
+        Gt=build_halo_ell(G_pad.transpose(), mesh, dtype=dtype),
+        inv_wscale=mesh.shard_vector(torch.from_numpy(smoother_weight / scale).to(dtype)),
+        node_hier=node_hier, **pi_kw,
+    )
+    cfg = CycleConfig(cycle=CycleType.MULT, smoother=params.smoother)
+    return build_halo_ell(A_pad, mesh, dtype=dtype), data, cfg, (E, E_pad), pad_node
+
+
+def solve_sharded_ams_pcg(
+    A_halo,
+    ams: AMSData,
+    cfg: CycleConfig,
+    b,
+    mesh,
+    pad_edge,
+    x0=None,
+    tol: float = 1e-8,
+    max_iters: int = 200,
+):
+    """PCG on the sharded edge system: b (and x0) the unpadded global
+    vectors, the returned x unpadded and global. The pad rows carry a zero
+    residual (unit diagonal, zero right-hand side), so dots and norms are
+    the unpadded system's; across processes they are all-reduced."""
+    from amg_tpu_torch.parallel.dist import pad_vector, unpad_vector
+
+    dtype = ams.inv_wscale.dtype
+    b_pad = pad_vector(torch.as_tensor(b).to(dtype), pad_edge, mesh)
+    x0_pad = torch.zeros_like(b_pad) if x0 is None else \
+        pad_vector(torch.as_tensor(x0).to(dtype), pad_edge, mesh)
+    res = pcg(lambda v: A_halo @ v, lambda r: ams_precondition(ams, cfg, r), b_pad, x0_pad,
+              tol=tol, max_iters=max_iters, dot=mesh.dot, norm=mesh.norm)
+    return res._replace(x=unpad_vector(res.x, pad_edge, mesh))
 
 
 class AMSDrawSource(Protocol):

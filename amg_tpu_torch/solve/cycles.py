@@ -215,7 +215,7 @@ def sync_additive_cycle(
 def sub_hierarchy(hier: Hierarchy, start: int) -> Hierarchy:
     """The hierarchy rooted at level `start` (shares the levels and the
     coarsest dense inverse)."""
-    return Hierarchy(levels=hier.levels[start:], coarse_Ainv=hier.coarse_Ainv)
+    return hier._replace(levels=hier.levels[start:])
 
 
 def mult_multadd_vcycle(

@@ -90,17 +90,21 @@ def solve(
     if accel in ("cheby", "richardson") and cheby_coeffs is None:
         raise ValueError("accelerated solve needs cheby_coeffs (see cheby_setup)")
     A0 = hier.levels[0].A
+    # a row-sharded hierarchy's vectors are this process's rows: its mesh
+    # reduces over all of them
+    dot, norm = (torch.dot, torch.linalg.norm) if hier.mesh is None \
+        else (hier.mesh.dot, hier.mesh.norm)
     if outer == "pcg":
         res = pcg(
             lambda v: A0 @ v,
             lambda r: cycle_step(hier, cfg, torch.zeros_like(r), r),
-            b, x0, tol=tol, max_iters=max_cycles,
+            b, x0, tol=tol, max_iters=max_cycles, dot=dot, norm=norm,
         )
         return SolveResult(x=res.x, iters=res.iters, rel_resnorm=res.rel_resnorm,
                            history=res.history)
     if outer is not None:
         raise ValueError(f"unknown outer solver {outer!r}")
-    r0norm = torch.linalg.norm(residual(A0, x0, b))
+    r0norm = norm(residual(A0, x0, b))
     safe_r0 = torch.where(r0norm == 0.0, torch.ones_like(r0norm), r0norm)
     hist = torch.full((max_cycles + 1,), float("nan"), dtype=b.dtype, device=device)
     hist[0] = 1.0
@@ -109,7 +113,7 @@ def solve(
     if no_resnorm:
         for _ in range(max_cycles):
             x, ch = _accelerated(hier, cfg, x, b, accel, cheby_coeffs, ch)
-        relnorm = torch.linalg.norm(residual(A0, x, b)) / safe_r0
+        relnorm = norm(residual(A0, x, b)) / safe_r0
         hist[max_cycles] = relnorm
         return SolveResult(x=x, iters=max_cycles, rel_resnorm=relnorm, history=hist)
     it = 0
@@ -117,7 +121,7 @@ def solve(
     rel = 1.0
     while it < max_cycles and rel > tol and rel < 1e3:
         x, ch = _accelerated(hier, cfg, x, b, accel, cheby_coeffs, ch)
-        relnorm = torch.linalg.norm(residual(A0, x, b)) / safe_r0
+        relnorm = norm(residual(A0, x, b)) / safe_r0
         hist[it + 1] = relnorm
         it += 1
         rel = float(relnorm)

@@ -30,13 +30,18 @@ def pcg(
     x0: torch.Tensor,
     tol: float = 1e-8,
     max_iters: int = 100,
+    dot: Callable = torch.dot,
+    norm: Callable = torch.linalg.norm,
 ) -> PCGResult:
+    """`dot` and `norm` reduce over the whole vector: the plain ones on one
+    device, a row mesh's all-reduced ones (parallel.dist.RowMesh) where the
+    vectors are this process's rows."""
     r = b - matvec(x0)
-    bnorm = torch.linalg.norm(r)
+    bnorm = norm(r)
     safe_bnorm = torch.where(bnorm == 0.0, torch.ones_like(bnorm), bnorm)
     z = precond(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     x = x0
     hist = torch.full((max_iters + 1,), math.nan, dtype=b.dtype, device=b.device)
     hist[0] = 1.0
@@ -44,15 +49,15 @@ def pcg(
     it = 0
     while it < max_iters and bool(rel > tol):
         Ap = matvec(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = alpha * p + x
         r = -alpha * Ap + r
         z = precond(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         p = beta * p + z
         rz = rz_new
-        rel = torch.linalg.norm(r) / safe_bnorm
+        rel = norm(r) / safe_bnorm
         hist[it + 1] = rel
         it += 1
     return PCGResult(x=x, iters=it, rel_resnorm=rel, history=hist)

@@ -251,7 +251,7 @@ def _deep_correct(hier: Hierarchy, cfg: CycleConfig, specs, lvl, rc):
         return hier.coarse_Ainv @ rc
     spec = specs.get(lvl)
     if spec is None:
-        sub = Hierarchy(levels=hier.levels[lvl:], coarse_Ainv=hier.coarse_Ainv)
+        sub = hier._replace(levels=hier.levels[lvl:])
         return mult_vcycle(sub, cfg, torch.zeros_like(rc), rc)
     if _can_fuse(hier, lvl, spec) or _can_fuse_zg(hier, lvl, spec, cfg):
         rc_pad = to_padded(rc, spec.grid_shape)

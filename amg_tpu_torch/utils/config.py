@@ -6,8 +6,9 @@ unchanged so that a set of options means the same run in both packages.
 
 The multi-device fields (`num_devices`, `grid_parallel`, `comm`, `imbal`,
 `assign_procs*`, `converge_test_type`) are kept, since the CLI parses them;
-`utils/runner.py` refuses `num_devices > 1` until the multi-device modules
-are ported.
+`utils/runner.py` runs the row-partitioned branches of `num_devices > 1`
+and refuses the grid-parallel ones (ROADMAP item 11b), so `imbal`,
+`assign_procs*` and `converge_test_type` are read by nothing yet.
 """
 
 from __future__ import annotations

@@ -6,10 +6,11 @@ level is its own closure, timed on the host clock with the device
 synchronised after it (on the card: `torch.cuda.synchronize()`), after one
 warm-up call of every closure (a first call may build a kernel). The
 segmented cycle computes the production cycle's arithmetic, operator by
-operator (asserted in the tests); only the synchronisation differs. One
-device exchanges no messages, so `comm_bytes` / `comm_msgs` stay 0; the
-halo accounting of the reference waits for the multi-device modules
-(ROADMAP queue 1 item 11).
+operator (asserted in the tests); only the synchronisation differs.
+`comm_bytes` / `comm_msgs` count, per level and cycle, the halo matvecs of
+a row-sharded hierarchy (`parallel.spcomm.comm_trace` over the warm-up
+calls: the wire bytes a shard ships, one message per halo matvec, as the
+reference counts them); one device exchanges nothing and reports 0.
 """
 
 from __future__ import annotations
@@ -91,6 +92,18 @@ def _timed(fn, *args):
     return out
 
 
+def _comm_stats_of(mesh, fn, *args):
+    """(fn(*args), bytes, messages): one call (a warm-up call) and its halo
+    traffic, none without a mesh."""
+    if mesh is None:
+        return _timed(fn, *args), 0, 0
+    from amg_tpu_torch.parallel.spcomm import comm_trace
+
+    with comm_trace(mesh) as log:
+        out = _timed(fn, *args)
+    return out, int(sum(log)), len(log)
+
+
 def _report(L, num_cycles) -> PhaseReport:
     return PhaseReport(
         num_levels=L, cycles=num_cycles,
@@ -133,12 +146,15 @@ def profile_mult_cycle(
     def coarse(r):
         return coarse_solve(hier, r)
 
-    # warm-up: every closure once
+    # warm-up: every closure once, counting each level's halo traffic
     for k in range(L - 1):
         z = torch.zeros(hier.levels[k].A.shape[1], dtype=b.dtype, device=b.device)
         zc = torch.zeros(hier.levels[k + 1].A.shape[0], dtype=b.dtype, device=b.device)
-        _timed(pre[k], z, z); _timed(post[k], z, z)
-        _timed(resid[k], z, z); _timed(restr[k], z); _timed(prol[k], z, zc)
+        for fn, args in ((pre[k], (z, z)), (post[k], (z, z)), (resid[k], (z, z)),
+                         (restr[k], (z,)), (prol[k], (z, zc))):
+            _, by, ms = _comm_stats_of(hier.mesh, fn, *args)
+            rep.comm_bytes[k] += by
+            rep.comm_msgs[k] += ms
     _timed(coarse, torch.zeros(hier.levels[L - 1].A.shape[1], dtype=b.dtype,
                                device=b.device))
 
@@ -265,12 +281,16 @@ def profile_additive_cycle(
 
     plans = [_additive_level_plan(hier, cfg, k) for k in range(L)]
 
-    # warm-up: every step once, on zeros of its input's shape
+    # warm-up: every step once, on zeros of its input's shape, counting each
+    # level's halo traffic
     _timed(resid0, x0, b)
     for k in range(L):
         env = {"r": torch.zeros_like(b)}
         for _phase, _lvl, fn, in_keys, out_key in plans[k]:
-            env[out_key] = _timed(fn, *(torch.zeros_like(env[ik]) for ik in in_keys))
+            args = tuple(torch.zeros_like(env[ik]) for ik in in_keys)
+            env[out_key], by, ms = _comm_stats_of(hier.mesh, fn, *args)
+            rep.comm_bytes[k] += by
+            rep.comm_msgs[k] += ms
 
     x = x0
     for _ in range(num_cycles):

@@ -24,9 +24,17 @@ result. Where the port differs:
     `opts.seed` (the reference's `jax.random` key chains are not
     reproduced); `draws=` hands one draw source to whichever async solver
     runs (the tests replay the reference's draws through it);
-  * `num_devices > 1` raises: the multi-device modules are ROADMAP queue 1
-    item 11; the reference's fixed-tile `-device_format bsr` is not ported
-    (ROADMAP, "Not ported") and raises.
+  * `num_devices > 1` runs the reference's row-partitioned branches over a
+    mesh of num_devices logical shards on `device` (`parallel.dist`; across
+    the processes of an initialized process group when there is one): the
+    structured hierarchy on the mesh, `build_dist_hierarchy` (comm "halo" or
+    "gspmd") for the generic solves, the halo operators of one-level async
+    smoothing, the sharded AMS-PCG. No kernel runs there, as in the
+    reference (the DIA hierarchy takes its plain form, the fused structured
+    solve is not taken). The grid-parallel branches (the extended system,
+    the async solvers with grid parallelism, async AMS) raise: ROADMAP
+    queue 1 item 11b. The reference's fixed-tile `-device_format bsr` is not
+    ported (ROADMAP, "Not ported") and raises.
 """
 
 from __future__ import annotations
@@ -40,13 +48,8 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.dtypes import resolve_device
-from amg_tpu_torch.utils.config import EXT_SOLVERS, SolverOptions
+from amg_tpu_torch.utils.config import ASYNC_SOLVERS, EXT_SOLVERS, SolverOptions
 from amg_tpu_torch.utils.stats import SolveStats, Timer
-
-NOT_PORTED_MULTI_DEVICE = (
-    "num_devices > 1 needs the multi-device modules (parallel/), which are not "
-    "ported yet (ROADMAP queue 1 item 11)"
-)
 
 
 def build_problem(opts: SolverOptions):
@@ -209,6 +212,8 @@ class Experiment:
     hier: Any = None
     A_acc: Any = None  # float64 outer operator (mixed_pcg)
     done: bool = False  # only_build_matrix / only_setup: nothing to solve
+    mesh: Any = None  # the row mesh of a row-sharded hierarchy (num_devices > 1)
+    pad_info: Any = None  # (n, padded n) of the mesh's vectors
 
 
 def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
@@ -220,7 +225,7 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
     device = resolve_device(device)
     opts.fixup()
     if opts.num_devices > 1:
-        raise NotImplementedError(NOT_PORTED_MULTI_DEVICE)
+        _refuse_grid_parallel(opts)
     if opts.device_format == "bsr":
         raise ValueError(
             "device_format 'bsr' (the reference's fixed-tile BSR) is not ported "
@@ -314,12 +319,30 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
                 smoother=smoother,
                 smooth_weight=opts.smooth_weight,
                 device=device,
+                # multi-device: the plain DIA form, as the reference keeps
+                # its XLA form there
+                use_kernel=opts.num_devices <= 1,
             )
         else:
             raise ValueError(
                 "structured hierarchy needs a stencil or grid-structured "
                 "problem"
             )
+        if opts.num_devices > 1:
+            from amg_tpu_torch.parallel.dist import make_row_mesh, shard_structured_hierarchy
+
+            if prob.n % opts.num_devices == 0:
+                exp.mesh = make_row_mesh(opts.num_devices, device)
+                exp.hier = shard_structured_hierarchy(exp.hier, exp.mesh)
+                exp.pad_info = (prob.n, prob.n)  # no padding on the structured path
+            else:
+                print(
+                    f"warning: n={prob.n} not divisible by {opts.num_devices} "
+                    "devices -- structured hierarchy runs replicated (choose grid "
+                    "sizes with n % num_devices == 0 to shard)"
+                )
+    elif opts.num_devices > 1:
+        _setup_sharded(exp, params)
     else:
         fine_op = prob.stencil
         if (
@@ -353,6 +376,56 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
     stats.setup_wtime = timer.lap()
     exp.done = opts.only_setup
     return exp
+
+
+def _refuse_grid_parallel(opts: SolverOptions) -> None:
+    """The multi-device branches that are grid (level) parallel raise: the
+    extended system over a mesh, the async solvers with grid parallelism and
+    async AMS over a mesh (ROADMAP queue 1 item 11b)."""
+    from amg_tpu_torch.parallel.dist import NOT_PORTED_GRID
+
+    if opts.hierarchy == "structured":
+        return  # the structured multi-device path row-shards
+    if opts.solver in EXT_SOLVERS and opts.grid_parallel:
+        raise NotImplementedError(f"{opts.solver} on {opts.num_devices} devices: "
+                                  + NOT_PORTED_GRID)
+    if opts.solver == "async_ams":
+        raise NotImplementedError(f"async_ams on {opts.num_devices} devices: "
+                                  + NOT_PORTED_GRID)
+    if opts.is_async() and opts.grid_parallel and opts.solver != "async_smooth":
+        raise NotImplementedError(
+            f"{opts.solver} on {opts.num_devices} devices with grid parallelism: "
+            + NOT_PORTED_GRID + " (-no_grid_parallel runs it row-sharded)")
+
+
+def _setup_sharded(exp: Experiment, params) -> None:
+    """The generic hierarchy of a num_devices > 1 run, as the reference
+    builds it: row-sharded over a mesh of num_devices shards
+    (`build_dist_hierarchy` with opts.comm), except where a branch replaces
+    it -- one-level async smoothing keeps the replicated hierarchy and puts
+    its own halo operator on the mesh (`solve_experiment`), and the
+    extended system without grid parallelism runs replicated, as the
+    reference runs it (said on stdout)."""
+    from amg_tpu_torch.parallel.dist import build_dist_hierarchy, make_row_mesh
+    from amg_tpu_torch.setup.hierarchy import build_host_hierarchy, device_hierarchy
+
+    opts, prob, device = exp.opts, exp.prob, exp.device
+    if params.setup_type == "sa":
+        from amg_tpu_torch.setup.aggregation import build_sa_host_hierarchy
+
+        exp.hh = build_sa_host_hierarchy(prob.A, params,
+                                         B=getattr(prob, "near_nullspace", None))
+    else:
+        exp.hh = build_host_hierarchy(prob.A, params)
+    if opts.solver in EXT_SOLVERS or (opts.solver == "async_smooth" and opts.grid_parallel):
+        if opts.solver in EXT_SOLVERS:
+            print(f"note: {opts.solver} with -no_grid_parallel runs replicated on "
+                  f"{device} (the extended system's only distribution is the grid "
+                  "layout, ROADMAP queue 1 item 11b)")
+        exp.hier = device_hierarchy(exp.hh, params, device=device)
+        return
+    exp.mesh = make_row_mesh(opts.num_devices, device)
+    exp.hier, exp.pad_info = build_dist_hierarchy(exp.hh, params, exp.mesh, comm=opts.comm)
 
 
 def _sync(device):
@@ -419,6 +492,15 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
         # generators with a natural load (elasticity beam, maxwell source)
         rhs = np.asarray(prob.rhs)
         b = torch.from_numpy(rhs / np.linalg.norm(rhs)).to(device=device, dtype=dtype)
+    b_global, x0_global = b, x0
+    mesh = exp.mesh
+    if mesh is not None:
+        from amg_tpu_torch.parallel.dist import pad_vector
+
+        b = pad_vector(b, exp.pad_info, mesh)
+        x0 = pad_vector(x0, exp.pad_info, mesh)
+        if opts.solver in ASYNC_SOLVERS or opts.mixed_precision:
+            mesh.require_one_process(f"{opts.solver} on a row mesh")
     cfg = cycle_config(opts, smoother)
     gw = None
     try:
@@ -438,8 +520,11 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
                 fire_prob=opts.fire_prob,
             )
             nbr = block_neighbor_mask(prob.A, opts.num_blocks)
+            A_s, sm_s = hier.levels[0].A, hier.levels[0].sm
+            if opts.num_devices > 1 and int(sm_s.scale.shape[0]) == prob.n:
+                A_s, sm_s, b, x0 = _halo_smoothing(exp, A_s, sm_s, b, x0)
             res = async_smooth_solve(
-                hier.levels[0].A, hier.levels[0].sm, ascfg, nbr, b, x0,
+                A_s, sm_s, ascfg, nbr, b, x0,
                 draws=draws, seed=opts.seed, tol=opts.tol,
                 max_cycles=opts.num_cycles, device=device,
             )
@@ -542,15 +627,29 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
             from amg_tpu_torch.setup.hierarchy import _format_converter
             from amg_tpu_torch.solve.ams import build_ams, solve_ams_pcg
 
-            ams, node_cfg = build_ams(
-                prob.A, prob.aux["G"], params=None, Pi=(prob.aux or {}).get("Pi"),
-                device=device,
-            )
-            A_dev = matrix_from_arrays(_format_converter(params)(prob.A), dtype, device)
-            res = solve_ams_pcg(
-                A_dev, ams, node_cfg, b, x0, tol=opts.tol,
-                max_iters=opts.num_cycles, device=device,
-            )
+            if opts.num_devices > 1:
+                # the distributed Maxwell path: sharded AMS with halo comm
+                from amg_tpu_torch.parallel.dist import make_row_mesh
+                from amg_tpu_torch.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
+
+                mesh_a = mesh if mesh is not None else make_row_mesh(opts.num_devices, device)
+                A_halo, ams, node_cfg, pad_e, _ = build_sharded_ams(
+                    prob.A, prob.aux["G"], mesh_a)
+                # the sharded solver pads b to its own layout and returns x
+                # unpadded
+                res = solve_sharded_ams_pcg(A_halo, ams, node_cfg, b_global, mesh_a, pad_e,
+                                            tol=opts.tol, max_iters=opts.num_cycles)
+                mesh = None
+            else:
+                ams, node_cfg = build_ams(
+                    prob.A, prob.aux["G"], params=None, Pi=(prob.aux or {}).get("Pi"),
+                    device=device,
+                )
+                A_dev = matrix_from_arrays(_format_converter(params)(prob.A), dtype, device)
+                res = solve_ams_pcg(
+                    A_dev, ams, node_cfg, b, x0, tol=opts.tol,
+                    max_iters=opts.num_cycles, device=device,
+                )
         else:
             coeffs = None
             accel = None if opts.accel == "none" else opts.accel
@@ -572,12 +671,17 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
     stats.cycles = int(res.iters)
     stats.rel_resnorm = float(res.rel_resnorm)
     stats.x = res.x
+    if mesh is not None:
+        from amg_tpu_torch.parallel.dist import unpad_vector
+
+        # the global unpadded iterate (gathered across processes)
+        stats.x = unpad_vector(res.x, exp.pad_info, mesh)
     if opts.rhs == "zeros" and opts.init_guess != "zeros":
         # zero-RHS experiment: the iterate is the error; the relative A-norm
         # error (the reference's e_Anorm / e0_Anorm)
         A_np = prob.A
-        x_np = _host(res.x).astype(np.float64)[: prob.n]
-        x0_np = _host(x0).astype(np.float64)[: prob.n]
+        x_np = _host(stats.x).astype(np.float64)[: prob.n]
+        x0_np = _host(x0_global).astype(np.float64)
         eA = float(np.sqrt(max(x_np @ (A_np @ x_np), 0.0)))
         e0A = float(np.sqrt(max(x0_np @ (A_np @ x0_np), 1e-300)))
         stats.e_anorm_rel = eA / e0A
@@ -587,6 +691,9 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
     if (
         opts.print_level_stats
         and opts.hierarchy in ("algebraic", "structured")
+        # as in the reference, multi-device runs are not profiled (profile
+        # a row-sharded hierarchy with utils.phases.profile_phases)
+        and opts.num_devices <= 1
         and opts.solver in ("mult", "multadd", "afacx", "afacj", "bpx")
     ):
         # per-phase instrumented re-run (the segmented cycle)
@@ -596,6 +703,38 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
             hier, cfg, b, x0, num_cycles=min(max(stats.cycles, 1), 5)
         )
     return stats
+
+
+def _halo_smoothing(exp: Experiment, A_s, sm_s, b, x0):
+    """One-level async smoothing on num_devices shards: the reference's
+    finest-grid halo channel, a plane exchange for a stencil whose leading
+    axis divides into the shards (`parallel.halo`), a boundary-segment
+    HaloELL where the row count does; (A, sm, b, x0) on the mesh, or
+    unchanged where neither divides (the reference stays on one device
+    there too; said on stdout)."""
+    from amg_tpu_torch.parallel.dist import make_row_mesh
+
+    opts, prob, device = exp.opts, exp.prob, exp.device
+    D = opts.num_devices
+    mesh = make_row_mesh(D, device)
+    mesh.require_one_process("one-level async smoothing")
+    if prob.stencil is not None and prob.stencil.grid_shape[0] % D == 0:
+        from amg_tpu_torch.parallel.halo import make_halo_stencil
+        from amg_tpu_torch.sparse.stencil import StencilOperator
+
+        st = prob.stencil
+        A_h = make_halo_stencil(StencilOperator(
+            weights=st.weights.to(device=device, dtype=exp.params.dtype),
+            offsets=st.offsets, grid_shape=st.grid_shape), mesh)
+    elif prob.n % D == 0:
+        from amg_tpu_torch.parallel.spcomm import build_halo_ell
+
+        A_h = build_halo_ell(prob.A, mesh, dtype=exp.params.dtype)
+    else:
+        print(f"warning: n={prob.n} not divisible by {D} devices -- one-level async "
+              "smoothing runs on one device")
+        return A_s, sm_s, b, x0
+    return A_h, sm_s, mesh.shard_vector(b), mesh.shard_vector(x0)
 
 
 def _fine_operator64(prob, hier):

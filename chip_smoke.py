@@ -170,6 +170,21 @@ Phases (any failure exits non-zero and prints no result line):
      hierarchy (float64 DIA levels, K5; the generic cycle, ROADMAP F10): K5
      launched, rel_res <= 1e-8, the cycles of the plain composition (K5's
      plain version in every operator).
+ 18. the row-partitioned multi-device path (`amg_tpu_torch/parallel/`), one
+     process, a mesh of 8 logical shards on the card; no kernel on it, as in
+     the reference (every counter must read 0): (a) goldens config7 and
+     config4 through run_experiment(num_devices=8): cycles, level_n,
+     history[:5] to rtol 1e-10, rel_res <= tol; (b) phase 10's 96^3 host
+     hierarchy through build_dist_hierarchy(comm="halo"), 110,592 rows a
+     shard, MULT V(1,1) float64 to 1e-8: the single-device 41 cycles, x
+     within 1e-9 of phase 10's, a true residual <= 1e-8; the halo bytes
+     and messages a cycle (comm_trace); host ms, device ms and events and
+     the idle share a cycle; the same hierarchy on comm="gspmd" (the
+     padded single-device computation): 41 cycles, x within 1e-9; (c)
+     AMS-PCG row-sharded (build_sharded_ams / solve_sharded_ams_pcg, G and
+     Pi) on maxwell_curlcurl(40), 182,520 edges, phase 15's b: the
+     single-device 124 iterations +-1, a true residual <= 1e-8, host and
+     device ms an iteration; (d) dryrun_multichip(8) inside its gates.
 The last two lines are the `kernels` JSON object (K1 on both of its
 kernels, K2-K5, K5's bf16-plane sweep) and
 {"ok": true, "device": {...}}.
@@ -1970,8 +1985,10 @@ def additive_phase_48(ref, device):
     return rec, fails
 
 
-def generic_phase(device):
-    """The generic AMG path: returns (record, failures)."""
+def generic_phase(device, keep):
+    """The generic AMG path: returns (record, failures); puts the 96^3
+    problem, host hierarchy, b, float64 x and per-cycle times into `keep`
+    (phase 18's single-device baseline)."""
     import torch
 
     from amg_tpu_torch.convert import hierarchy_from_arrays
@@ -2014,6 +2031,7 @@ def generic_phase(device):
     x = res.x.cpu().numpy()
     true_rel = true_rel_residual(prob, x, b_np)
     hist64 = res.history_list()
+    keep.update(prob=prob, hh=hh, b=b_np, x64=x)
     log(f"generic float64 MULT V(1,1) L1-Jacobi: cycles {res.iters} (reference "
         f"{GENERIC_REF['96']['iters']}), rel_res {float(res.rel_resnorm):.4e}, true rel_res "
         f"(float64 CSR) {true_rel:.4e}, {solve_s:.3f} s; launches {counts}")
@@ -2075,6 +2093,7 @@ def generic_phase(device):
         log(f"  {ms:.4f} ms  {nev:7.1f} launches  {name[:100]}")
     rec.update(host_ms_per_cycle=host_ms, device_busy_ms_per_cycle=busy,
                events_per_cycle=events, idle_share=idle)
+    keep.update(host_ms=host_ms, device_ms=busy)
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), ASYNC_REF)) as f:
         aref = json.load(f)
@@ -2358,6 +2377,174 @@ def drivers_phase(device):
     return rec, fails
 
 
+# phase 18: the row-partitioned multi-device path, D logical shards on one
+# card (parallel.dist.make_row_mesh)
+MULTI_D = 8
+MULTI_GOLDENS = ("config7_halo_dist_mult", "config4_elasticity_dist")
+
+
+def multidevice_phase(device, keep, ams_ref):
+    """Phase 18 on `device`: `keep` holds phase 10's 96^3 problem, host
+    hierarchy, b and float64 x; `ams_ref` phase 15's reference numbers.
+    Returns (record, failures)."""
+    import torch
+
+    from amg_tpu_torch.parallel import (
+        build_dist_hierarchy,
+        comm_trace,
+        make_row_mesh,
+        pad_vector,
+        unpad_vector,
+    )
+    from amg_tpu_torch.problems.maxwell import maxwell_curlcurl
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams
+    from amg_tpu_torch.solve.ams import build_sharded_ams, solve_sharded_ams_pcg
+    from amg_tpu_torch.solve.cycles import CycleConfig, mult_vcycle
+    from amg_tpu_torch.solve.driver import solve
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.dryrun import dryrun_multichip
+    from amg_tpu_torch.utils.runner import run_experiment
+
+    t_phase = time.perf_counter()
+    fails, rec = [], {"goldens": {}}
+
+    def no_kernel(label, counts):
+        if any(counts.values()):
+            fails.append(f"{label}: a kernel was launched on the multi-device path {counts}")
+
+    # (a) the multi-device goldens through the runner
+    for name in MULTI_GOLDENS:
+        g = load_json(f"tests/golden/{name}.json")
+        opts = SolverOptions(**g["config"])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = run_experiment(opts, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ok_hist = np.allclose(st.history[:5], g["history"][:5], rtol=1e-10, atol=1e-14)
+        log(f"golden {name} (num_devices {opts.num_devices}, comm {opts.comm}): cycles "
+            f"{st.cycles} (golden {g['cycles']}), level_n {st.level_n}, rel_res "
+            f"{st.rel_resnorm:.4e}, history[:5] {'equal' if ok_hist else 'DIFFERS'} (rtol "
+            f"1e-10), {wall:.2f} s; launches {counts}")
+        rec["goldens"][name] = {"cycles": st.cycles, "rel_res": st.rel_resnorm, "s": wall}
+        if st.cycles != g["cycles"] or st.level_n != g["level_n"] or not ok_hist \
+                or not st.rel_resnorm <= opts.tol:
+            fails.append(f"golden {name}: not the golden's cycles, shapes or history")
+        no_kernel(name, counts)
+    log(f"  (a) {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) 96^3 on 8 shards, the halo route, against phase 10's solve
+    prob, hh, b_np, x1 = keep["prob"], keep["hh"], keep["b"], keep["x64"]
+    mesh = make_row_mesh(MULTI_D, device)
+    cfg = CycleConfig()
+    params = HierarchyParams()  # phase 10's
+    want_iters = GENERIC_REF["96"]["iters"]
+    for comm in ("halo", "gspmd"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hier, info = build_dist_hierarchy(hh, params, mesh, comm=comm)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        b = pad_vector(torch.from_numpy(b_np), info, mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(hier, cfg, b, tol=1e-8, device=device)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        x = unpad_vector(res.x, info, mesh).cpu().numpy()
+        dx = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
+        true_rel = true_rel_residual(prob, x, b_np)
+        shard_rows = [lv.A.shape[0] // MULTI_D for lv in hier.levels]
+        log(f"{GENERIC_N}^3 on {MULTI_D} shards, comm {comm}: setup {setup_s:.2f} s, rows a "
+            f"shard {shard_rows}; cycles {res.iters} (one device {want_iters}), rel_res "
+            f"{float(res.rel_resnorm):.4e}, true rel_res {true_rel:.4e}, |x - x_1|/|x_1| "
+            f"{dx:.3e}, {solve_s:.3f} s; launches {counts}")
+        r = {"setup_s": setup_s, "iters": res.iters, "true_rel_res": true_rel, "dx": dx,
+             "solve_s": solve_s, "rows_a_shard": shard_rows}
+        if res.iters != want_iters or dx > 1e-9 or not true_rel <= 1e-8:
+            fails.append(f"{GENERIC_N}^3 {comm}: not the single-device cycles or x")
+        no_kernel(f"{GENERIC_N}^3 {comm}", counts)
+        if comm == "halo":
+            with comm_trace(mesh) as trace:
+                mult_vcycle(hier, cfg, torch.zeros_like(b), b)
+            r.update(comm_bytes_per_cycle=int(sum(trace)), comm_msgs_per_cycle=len(trace))
+            payload = sum(lv.A.comm_payload_bytes_per_matvec() for lv in hier.levels)
+            log(f"  halo traffic a cycle: {sum(trace)} bytes a shard in {len(trace)} halo "
+                f"matvecs; one matvec on every level ships {payload} payload bytes a shard")
+
+            def run(k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                solve(hier, cfg, b, tol=0.0, max_cycles=k, device=device)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t
+
+            host_ms, _, _ = host_slope_ms(run, 5, 15)
+            busy, events, rows = device_per_cycle(
+                lambda k: solve(hier, cfg, b, tol=0.0, max_cycles=k, device=device), 5, 10)
+            idle = 1.0 - busy / host_ms if host_ms > 0 else None
+            log(f"  a cycle: host clock {host_ms:.4f} ms, device busy {busy:.4f} ms in "
+                f"{events:.1f} events, idle share "
+                f"{'not measured' if idle is None else f'{idle:.3f}'} (phase 10, one device: "
+                f"{keep['device_ms']:.4f} ms device, {keep['host_ms']:.4f} ms host)")
+            for ms, nev, name in rows[:8]:
+                log(f"    {ms:.4f} ms  {nev:7.1f} launches  {name[:100]}")
+            r.update(host_ms_per_cycle=host_ms, device_busy_ms_per_cycle=busy,
+                     events_per_cycle=events, idle_share=idle)
+        rec[f"96 {comm}"] = r
+        del hier
+        torch.cuda.empty_cache()
+        log(f"  (b) {comm}: {time.perf_counter() - t_phase:.1f} s into the phase")
+    del keep["hh"]
+
+    # (c) AMS-PCG row-sharded at n = 40
+    pm = maxwell_curlcurl(MAXWELL_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A_h, ams, node_cfg, pad_e, _ = build_sharded_ams(pm.A, pm.aux["G"], mesh, Pi=pm.aux["Pi"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bm_np = np.random.default_rng(0).random(pm.n)  # phase 15's b
+    bm = torch.from_numpy(bm_np)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mres = solve_sharded_ams_pcg(A_h, ams, node_cfg, bm, mesh, pad_e, tol=1e-8, max_iters=200)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    true_rel = true_rel_residual(pm, mres.x.cpu().numpy(), bm_np)
+    log(f"AMS-PCG maxwell_curlcurl({MAXWELL_N}) on {MULTI_D} shards ({pm.n} edges, padded "
+        f"{pad_e[1]}): setup {setup_s:.2f} s; iterations {mres.iters} (one device "
+        f"{ams_ref['iters']}), rel_res {float(mres.rel_resnorm):.4e}, true rel_res "
+        f"{true_rel:.4e}, {solve_s:.3f} s; launches {counts}")
+    rec["ams"] = {"setup_s": setup_s, "iters": mres.iters, "true_rel_res": true_rel,
+                  "solve_s": solve_s}
+    if abs(mres.iters - ams_ref["iters"]) > 1 or not true_rel <= 1e-8:
+        fails.append("sharded AMS-PCG: not the single-device iterations +-1 or residual > 1e-8")
+    no_kernel("sharded AMS-PCG", counts)
+    rec["ams"].update(log_profile("sharded AMS-PCG float64", solve_profile(
+        lambda: solve_sharded_ams_pcg(A_h, ams, node_cfg, bm, mesh, pad_e, tol=1e-8,
+                                      max_iters=200), mres.iters)))
+    del A_h, ams
+    log(f"  (c) {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (d) the dry run
+    t0 = time.perf_counter()
+    try:
+        rec["dryrun"] = dryrun_multichip(MULTI_D, device)
+    except AssertionError as e:
+        fails.append(f"dryrun_multichip: {e}")
+    rec["dryrun_s"] = time.perf_counter() - t0
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"multi-device phase: {rec['phase_s']:.1f} s (the dry run {rec['dryrun_s']:.1f} s)")
+    return rec, fails
+
+
 def main() -> int:
     import torch
 
@@ -2508,7 +2695,8 @@ def main() -> int:
         log("AMS path FAILED:", fams)
         return 1
     log("generic AMG path:")
-    gen, fgen = generic_phase(device)
+    keep = {}  # phase 10's 96^3 host hierarchy and solve, for phase 18
+    gen, fgen = generic_phase(device, keep)
     if fgen:
         log("generic AMG path FAILED:", fgen)
         return 1
@@ -2516,6 +2704,11 @@ def main() -> int:
     drv, fdrv = drivers_phase(device)
     if fdrv:
         log("drivers phase FAILED:", fdrv)
+        return 1
+    log("the row-partitioned multi-device path (8 shards on one card):")
+    multi, fmulti = multidevice_phase(device, keep, eref["ams"])
+    if fmulti:
+        log("multi-device phase FAILED:", fmulti)
         return 1
 
     cycle = cycle_phase(hier32, cfg, b32, device)
@@ -2581,6 +2774,7 @@ def main() -> int:
     log(json.dumps({"ams": amsr}))
     log(json.dumps({"generic": gen}))
     log(json.dumps({"drivers": drv}))
+    log(json.dumps({"multidevice": multi}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

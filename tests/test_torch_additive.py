@@ -24,9 +24,17 @@ from amg_tpu.solve import driver as rdrv
 from amg_tpu_torch.smooth.smoothers import SmootherType
 from amg_tpu_torch.solve import cycles as pcy
 from amg_tpu_torch.solve import driver as pdrv
-from torch_parity import port_hierarchy
+from torch_parity import port_hierarchy, reference_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_library():
+    """The reference's "hmis" hierarchies here are its native library's,
+    which these tests compare the port's own setup with (ROADMAP F11)."""
+    reference_native()
+
 
 TOL = dict(rtol=1e-10, atol=1e-14)
 

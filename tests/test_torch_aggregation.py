@@ -37,8 +37,16 @@ from amg_tpu_torch.setup import aggregation as pagg
 from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
 from amg_tpu_torch.utils.config import SolverOptions
 from amg_tpu_torch.utils.runner import run_experiment
+from torch_parity import reference_native
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_library():
+    """The reference's "hmis" hierarchies here are its native library's,
+    which these tests compare the port's own setup with (ROADMAP F11)."""
+    reference_native()
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 HIST = dict(rtol=1e-10, atol=1e-14)

@@ -42,9 +42,17 @@ from torch_parity import (
     jax_async_ams_eigs,
     jax_build_ams_with_hosts,
     level_sizes,
+    reference_native,
 )
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_library():
+    """The reference's "hmis" hierarchies here are its native library's,
+    which these tests compare the port's own setup with (ROADMAP F11)."""
+    reference_native()
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 HIST = dict(rtol=1e-10, atol=1e-14)

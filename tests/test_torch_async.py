@@ -40,7 +40,7 @@ from amg_tpu.solve.cycles import CycleConfig as RCfg
 from amg_tpu.solve.cycles import CycleType as RType
 from amg_tpu.solve.driver import cheby_setup as r_cheby_setup
 from amg_tpu_torch.problems.laplacian import laplacian_2d_5pt
-from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+from amg_tpu_torch.setup.hierarchy import HierarchyParams
 from amg_tpu_torch.smooth.smoothers import SmootherType
 from amg_tpu_torch.solve import async_sim as pas
 from amg_tpu_torch.solve import async_smooth as psm
@@ -51,7 +51,7 @@ from amg_tpu_torch.solve.driver import cheby_setup as p_cheby_setup
 from amg_tpu_torch.utils.config import SolverOptions
 from amg_tpu_torch.utils.runner import run_experiment
 from torch_parity import JaxAsyncDraws, JaxExtDraws, JaxSmoothDraws, async_options, \
-    port_hierarchy
+    port_hierarchy, port_host_hierarchy
 
 torch.set_num_threads(1)
 
@@ -209,9 +209,10 @@ def test_ext_solve_follows_the_reference(p5, explicit, async_):
     want = rext.ext_solve(jh, want_ext, jnp.asarray(b), tol=1e-8, max_cycles=50,
                           cheby_coeffs=want_c, async_fire_prob=fire, sim_read_delay=delay,
                           key=jax.random.PRNGKey(1))
-    phh, _ = build_hierarchy(laplacian_2d_5pt(32, 32).A, HierarchyParams(), device="cpu")
-    got_ext = pext.build_extended_system(phh, HierarchyParams(), explicit=explicit,
-                                         device="cpu")
+    # the reference's host hierarchy carried across: both extended systems
+    # come from one hierarchy, whichever coarsening the reference loaded
+    got_ext = pext.build_extended_system(port_host_hierarchy(hh), HierarchyParams(),
+                                         explicit=explicit, device="cpu")
     assert got_ext.offsets == want_ext.offsets
     np.testing.assert_allclose(got_ext.inv_wdiag.numpy(), np.asarray(want_ext.inv_wdiag),
                                rtol=1e-14)

@@ -26,7 +26,7 @@ from amg_tpu_torch.sparse import bsr as pbsr
 from amg_tpu_torch.sparse import ell as pell
 from amg_tpu_torch.sparse.csr import CSRMatrix
 from torch_parity import GENERIC_MATRICES as GENERIC
-from torch_parity import bsr_blocks, export_jax_hierarchy, level_sizes
+from torch_parity import bsr_blocks, export_jax_hierarchy, level_sizes, port_host_hierarchy
 
 torch.set_num_threads(1)
 
@@ -106,17 +106,20 @@ def _same_matrix(got, want):
 
 @pytest.mark.parametrize("fmt", ["ell", "bsr_auto"])
 def test_device_hierarchy_puts_the_same_matrices_on_each_level(fmt):
-    """Both builders end to end (build_hierarchy, the stencil kept on level
-    0) in one format; and the reference's hierarchy carried across by
-    tests/torch_parity.py equals the port's own."""
+    """Both packages' device_hierarchy on one host hierarchy (the
+    reference's, carried across: the formats, not the coarsening, are under
+    test here; test_torch_amg_setup holds the coarsening), the stencil kept
+    on level 0, in one format; and the reference's hierarchy carried across
+    by tests/torch_parity.py equals the port's own."""
     prob = laplacian_3d_27pt(12)
     from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt as p27
 
     pprob = p27(12)
     hh_r, want = rhi.build_hierarchy(prob.A, rhi.HierarchyParams(device_format=fmt),
                                      fine_stencil=prob.stencil)
-    hh_p, got = phi.build_hierarchy(pprob.A, phi.HierarchyParams(device_format=fmt),
-                                    fine_stencil=pprob.stencil, device="cpu")
+    hh_p = port_host_hierarchy(hh_r)
+    got = phi.device_hierarchy(hh_p, phi.HierarchyParams(device_format=fmt),
+                               fine_stencil=pprob.stencil, device="cpu")
     assert got.num_levels == want.num_levels and level_sizes(got) == want.level_sizes()
     for k, (g, w) in enumerate(zip(got.levels, want.levels)):
         if k == 0:

@@ -249,8 +249,10 @@ def test_driver_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("opts,err,match", [
-    ({"num_devices": 2}, NotImplementedError, "item 11"),
-    ({"num_devices": 8, "solver": "async_multadd"}, NotImplementedError, "item 11"),
+    # the row-sharded path runs (test_torch_parallel.py); the extended
+    # system over a mesh is the grid slice's
+    ({"num_devices": 2, "solver": "implicit_ext_bpx"}, NotImplementedError, "item 11b"),
+    ({"num_devices": 8, "solver": "async_multadd"}, NotImplementedError, "item 11b"),
     ({"device_format": "bsr"}, ValueError, "Not ported"),
 ], ids=["rows", "grid", "bsr"])
 def test_the_runner_refuses_what_is_not_ported(opts, err, match):
@@ -303,3 +305,112 @@ def test_the_struct_branch_needs_the_card_and_a_constant_stencil():
                   dict(outer_solver="pcg"), dict(hierarchy="algebraic")):
         o = SolverOptions(**dict(dict(hierarchy="structured"), **other)).fixup()
         assert not takes_struct_solve(o, l1, cuda, stencil), other
+
+
+def test_the_parallel_modules_load_no_jax():
+    code = (
+        "import sys\n"
+        "import amg_tpu_torch.parallel, amg_tpu_torch.utils.dryrun\n"
+        "from amg_tpu_torch.parallel import dist, halo, multihost, spcomm\n"
+        "from amg_tpu_torch.solve.ams import build_sharded_ams, solve_sharded_ams_pcg\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'amg_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_parallel_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from amg_tpu_torch.parallel import init_multihost, make_row_mesh
+    from amg_tpu_torch.utils.dryrun import dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_row_mesh(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_multihost("localhost:1", 1, 0)
+    mesh = make_row_mesh(8, "cpu")
+    assert (mesh.n_devices, mesh.local_devices, mesh.world_size) == (8, 8, 1)
+    assert mesh.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="does not split"):
+        make_row_mesh(0, "cpu")
+
+
+def test_init_multihost_picks_nccl_for_cuda_and_gloo_for_the_cpu():
+    import socket
+
+    from amg_tpu_torch.parallel import global_mesh_info, init_multihost, make_row_mesh
+    from amg_tpu_torch.parallel.multihost import process_group_backend
+
+    assert process_group_backend("cuda") == process_group_backend(torch.device("cuda", 1)) \
+        == "nccl"
+    assert process_group_backend("cpu") == "gloo"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert init_multihost(f"localhost:{port}", 1, 0, device="cpu") == torch.device("cpu")
+    try:
+        assert torch.distributed.get_backend() == "gloo"
+        mesh = make_row_mesh(4, "cpu")
+        assert global_mesh_info(mesh) == {"process_index": 0, "process_count": 1,
+                                          "local_devices": 4, "global_devices": 4,
+                                          "device": "cpu"}
+        assert mesh.group is None  # one process: nothing crosses
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_the_one_process_routes_raise_across_processes():
+    """comm="gspmd", the sharded structured hierarchy and the block
+    smoothers have no route across processes (ROADMAP item 11c); the halo
+    route does."""
+    from amg_tpu_torch.parallel.dist import RowMesh, build_dist_hierarchy, \
+        shard_structured_hierarchy
+    from amg_tpu_torch.problems.laplacian import laplacian_2d_5pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_host_hierarchy
+    from amg_tpu_torch.setup.structured import build_structured_hierarchy
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+
+    # the first of two processes: no collective runs while building
+    mesh = RowMesh(n_devices=8, device=torch.device("cpu"), rank=0, world_size=2)
+    prob = laplacian_2d_5pt(16)
+    params = HierarchyParams(keep_stencil_fine=False)
+    hh = build_host_hierarchy(prob.A, params)
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        build_dist_hierarchy(hh, params, mesh, comm="gspmd")
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        build_dist_hierarchy(hh, HierarchyParams(keep_stencil_fine=False,
+                                                 smoother=SmootherType.HYBRID_JGS),
+                             mesh, comm="halo")
+    _, hier = build_structured_hierarchy(prob.stencil, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        shard_structured_hierarchy(hier, mesh)
+    hier_h, info = build_dist_hierarchy(hh, params, mesh, comm="halo")
+    assert hier_h.levels[0].A.vals.shape[0] == 4  # its own 4 shards
+    assert hier_h.levels[0].sm.scale.shape == (info[1] // 2,)
+    with pytest.raises(ValueError, match="unknown comm"):
+        build_dist_hierarchy(hh, params, mesh, comm="mpi")
+
+
+@pytest.mark.parametrize("name", ["config6_grid_async_multadd",
+                                  "config12_maxwell_async_ams_grid"])
+def test_the_grid_goldens_raise_with_the_grid_slice(name):
+    """The multi-device goldens of the grid half raise NotImplementedError
+    naming ROADMAP item 11b; nothing falls back to one device."""
+    import json
+
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import run_experiment
+
+    with open(ROOT / "tests" / "golden" / f"{name}.json") as f:
+        cfg = json.load(f)["config"]
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        run_experiment(SolverOptions(**cfg), device="cpu")
+    for solver in ("explicit_ext_bpx", "async_ams", "async_bpx"):
+        with pytest.raises(NotImplementedError, match="item 11b"):
+            run_experiment(SolverOptions(problem="5pt", n=8, num_devices=8, solver=solver),
+                           device="cpu")

@@ -39,7 +39,7 @@ from amg_tpu_torch.solve.cycles import CycleConfig, cycle_step
 from amg_tpu_torch.solve.krylov import pcg
 from amg_tpu_torch.solve.mixed import mixed_pcg, mixed_solve
 
-from torch_parity import port_hierarchy
+from torch_parity import port_hierarchy, port_host_hierarchy
 
 # one intra-op thread: the suite runs several worker processes at once, and
 # idle OpenMP threads spinning in each would take cores from the others
@@ -106,14 +106,16 @@ def test_mixed_solve_matches_jax():
     from amg_tpu.setup.hierarchy import build_hierarchy as jax_build
 
     from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
-    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, device_hierarchy
 
     jprob, prob = jax_27pt(12), laplacian_3d_27pt(12)
     b = np.random.default_rng(0).random(prob.n)
-    _, jh = jax_build(jprob.A, JaxParams(dtype=jnp.float32), fine_stencil=jprob.stencil)
+    hh, jh = jax_build(jprob.A, JaxParams(dtype=jnp.float32), fine_stencil=jprob.stencil)
     want = jax_mixed_solve(jh, jprob.stencil, JaxCycleConfig(), jnp.asarray(b), tol=1e-8)
-    _, th = build_hierarchy(prob.A, HierarchyParams(dtype=torch.float32),
-                            fine_stencil=prob.stencil, device="cpu")
+    # the reference's host hierarchy carried across (the coarsening is
+    # test_torch_amg_setup's), on the port's device in float32
+    th = device_hierarchy(port_host_hierarchy(hh), HierarchyParams(dtype=torch.float32),
+                          fine_stencil=prob.stencil, device="cpu")
     assert th.dtype == torch.float32
     got = mixed_solve(th, prob.stencil, CycleConfig(), b, tol=1e-8, device="cpu")
     assert got.x.dtype == torch.float64

@@ -24,6 +24,113 @@ def f64(a):
     return np.asarray(a, dtype=np.float64)
 
 
+def port_csr(m):
+    """A JAX-package CSRMatrix as the port's (the same arrays)."""
+    from amg_tpu_torch.sparse.csr import CSRMatrix
+
+    return CSRMatrix(indptr=np.asarray(m.indptr), indices=np.asarray(m.indices),
+                     data=np.asarray(m.data), shape=tuple(m.shape))
+
+
+def halo_arrays(op):
+    """A JAX HaloELL / HaloBSR / HaloStencilOperator as the arrays of
+    amg_tpu_torch.convert.halo_from_arrays."""
+    from amg_tpu.parallel.halo import HaloStencilOperator
+    from amg_tpu.parallel.spcomm import HaloELL
+    from amg_tpu.setup.structured import VarStencilOperator
+
+    if isinstance(op, HaloStencilOperator):
+        A = op.base
+        meta = {"offsets": A.offsets, "grid_shape": A.grid_shape}
+        if isinstance(A, VarStencilOperator):
+            return {"kind": "halo_stencil", "base": {"kind": "var", "coeffs": f64(A.coeffs),
+                                                     **meta}}
+        return {"kind": "halo_stencil", "base": {"kind": "stencil", "weights": f64(A.weights),
+                                                 **meta}}
+    common = {"send_idx": np.asarray(op.send_idx), "ghost_map": np.asarray(op.ghost_map),
+              "offsets": op.offsets, "perms": op.perms, "shape": tuple(op.shape)}
+    if isinstance(op, HaloELL):
+        return {"kind": "halo_ell", "cols": np.asarray(op.cols), "vals": f64(op.vals),
+                "wire_send": op.wire_send, "payload_send": op.payload_send, **common}
+    return {"kind": "halo_bsr", "block_cols": np.asarray(op.block_cols),
+            "blocks": f64(op.blocks), **common}
+
+
+def halo_reference_layout(op):
+    """A port HaloELL's columns (or a HaloBSR's block columns and tiles) in
+    the reference's per-shard layout: indices < n_loc_c the shard's own
+    column block, >= n_loc_c its ghost slots; tiles (L, nrb_loc, kb, bm,
+    bn)."""
+    from amg_tpu_torch.parallel.spcomm import HaloELL
+
+    flat = op.flat_cols if isinstance(op, HaloELL) else op.flat_bc
+    width = (op.n_loc_c if isinstance(op, HaloELL) else op.ncb_loc) + op.ex.G
+    local = flat.numpy() - (np.arange(flat.shape[0]) * width)[:, None, None]
+    if isinstance(op, HaloELL):
+        return local
+    L, nrb, bm, w = op.tiles.shape
+    return local, op.tiles.view(L, nrb, bm, w // op.bn, op.bn).permute(0, 1, 3, 2, 4).numpy()
+
+
+# the CSR matrices of a host level (both packages' HostLevel)
+HOST_MATRICES = ("A", "P", "R", "P_s", "R_s", "R_inj", "P_id", "R_id")
+
+
+def port_host_hierarchy(hh):
+    """The JAX package's HostHierarchy as the port's: the same CSR arrays,
+    C/F splits and smoother weights, so that both packages build their
+    device-side structures (the extended system, a device hierarchy) from
+    one host hierarchy whichever coarsening built it."""
+    from amg_tpu_torch.setup.hierarchy import HostHierarchy, HostLevel
+    from amg_tpu_torch.sparse.csr import CSRMatrix
+
+    def csr(m):
+        if m is None:
+            return None
+        return CSRMatrix(indptr=np.array(m.indptr), indices=np.array(m.indices),
+                         data=f64(m.data).copy(), shape=tuple(m.shape))
+
+    return HostHierarchy(levels=[
+        HostLevel(**{name: csr(getattr(lv, name)) for name in HOST_MATRICES},
+                  cf=None if lv.cf is None else np.array(lv.cf), weight=float(lv.weight))
+        for lv in hh.levels])
+
+
+def reference_native():
+    """The JAX package's native setup library, loaded. Its loader runs
+    `make -C native` once per process and, if that build fails (several
+    test workers starting it at once), falls back to numpy without a word
+    (ROADMAP F11), which changes its "hmis" hierarchies. When that has
+    happened, build the reference's own source again under a file lock into
+    the port's git-ignored build directory, with the Makefile's flags, and
+    point the loader at it."""
+    import fcntl
+    import hashlib
+    import os
+    import subprocess
+
+    from amg_tpu import native_backend as rnb
+    from amg_tpu_torch import native_backend as pnb
+
+    if rnb.available():
+        return rnb
+    src = os.path.join(os.path.dirname(rnb._LIB_PATH), "amg_setup.cpp")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(pnb.FLAGS).encode()).hexdigest()[:16]
+    pnb.BUILD_DIR.mkdir(exist_ok=True)
+    out = pnb.BUILD_DIR / f"reference_libamgsetup_{tag}.so"
+    with open(pnb.BUILD_DIR / "reference_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            subprocess.run(["g++", *pnb.FLAGS, "-o", str(tmp), src], check=True,
+                           capture_output=True, timeout=600)
+            os.replace(tmp, out)
+    rnb._LIB_PATH, rnb._tried, rnb._lib = str(out), False, None
+    assert rnb.available(), "the JAX package's native library did not load"
+    return rnb
+
+
 def gs_scan_sweep(ell, diag, u, f):
     """Exact sequential Gauss-Seidel over the rows of the port's ELLMatrix,
     one row at a time: the oracle of the GS smoother (O(n) steps)."""
