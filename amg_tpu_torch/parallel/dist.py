@@ -25,9 +25,11 @@ comm="gspmd" (the reference lets XLA insert collectives into plain sharded
 ELL/BSR operators) is, in one process, the padded single-device computation,
 which is what GSPMD computes; the structured hierarchy likewise
 (`shard_structured_hierarchy`). Neither is ported across processes: both
-raise under world_size > 1 (ROADMAP queue 1 item 11c). The grid (level)
-parallel parts of the reference module (`pad_extended_layout`) come with
-ROADMAP item 11b.
+raise under world_size > 1 (ROADMAP queue 1 item 11c).
+
+Grid (level) parallelism lays its levels over the same mesh: whole shards
+per level group (`parallel.grid`), or, for the extended system, each level
+block padded to the shard range of its group (`pad_extended_layout`).
 """
 
 from __future__ import annotations
@@ -40,12 +42,7 @@ import torch
 
 from amg_tpu_torch.dtypes import resolve_device
 
-# the multi-device routes that are not ported yet, by ROADMAP item
-NOT_PORTED_GRID = (
-    "grid (level) parallelism -- the extended system, the grid-parallel async "
-    "solves and the AMS groups over a mesh -- is ROADMAP queue 1 item 11b, the "
-    "multi-device slice after the row-partitioned one"
-)
+# the multi-device routes that run in one process only (ROADMAP item 11c)
 NOT_PORTED_ACROSS_PROCESSES = (
     "{what} runs in one process only (the padded single-device computation "
     "that GSPMD computes); across processes it is ROADMAP queue 1 item 11c"
@@ -323,6 +320,52 @@ def shard_hierarchy(hier, mesh: RowMesh):
     if mesh.world_size > 1 and not isinstance(inv, ReplicatedInverse):
         inv = ReplicatedInverse(inv, mesh)
     return hier._replace(coarse_Ainv=inv, mesh=mesh)
+
+
+def pad_extended_layout(level_sizes, assignment, num_devices):
+    """The static layout of grid parallelism on the extended system: each
+    level block placed inside the shard range of its assigned devices,
+    padded so that a plain num_devices-way row split of the flat vector puts
+    level k's rows exactly on assignment[k]'s shards (the reference's
+    AssignProcs communicator split, src/DMEM_Setup.cpp:1638-1759). Returns
+    (padded_offsets, padded_total, row_owner): padded_offsets has L + 1
+    entries (block k spans [padded_offsets[k], padded_offsets[k + 1]), its
+    data rows first, its padding after), row_owner[i] is the level owning
+    padded row i (-1: padding)."""
+    L = len(level_sizes)
+    assert len(assignment) == L
+
+    def clamp(k):
+        s, e = assignment[k]
+        s = min(max(s, 0), num_devices - 1)
+        e = min(max(e, s + 1), num_devices)
+        return s, e
+
+    # the shard row count: every device fits its share of its levels
+    need = np.zeros(num_devices, np.int64)
+    for k in range(L):
+        s, e = clamp(k)
+        need[s:e] += -(-level_sizes[k] // (e - s))
+    S = int(max(need.max(), 1))
+    starts = np.zeros(L, np.int64)
+    cursor = np.zeros(num_devices, np.int64)
+    for k in range(L):  # levels arrive in increasing device order
+        s, e = clamp(k)
+        starts[k] = s * S + cursor[s]
+        left = level_sizes[k]
+        for d in range(s, e):
+            take = min(S - cursor[d], left)
+            cursor[d] += take
+            left -= take
+        assert left == 0, "shard size too small for assignment"
+    padded_total = num_devices * S
+    padded_offsets = list(starts) + [padded_total]
+    for k in range(1, L):
+        assert padded_offsets[k] >= padded_offsets[k - 1] + level_sizes[k - 1]
+    row_owner = np.full(padded_total, -1, np.int32)
+    for k in range(L):
+        row_owner[padded_offsets[k]: padded_offsets[k] + level_sizes[k]] = k
+    return tuple(int(o) for o in padded_offsets), padded_total, row_owner
 
 
 def shard_structured_hierarchy(hier, mesh: RowMesh):

@@ -328,7 +328,10 @@ def build_halo_ell(csr, mesh: RowMesh, dtype=None, max_ppermute_offsets=None) ->
         _build_exchange_pattern(ghost_lists, n_loc_c, D, max_ppermute_offsets)
 
     L, first = mesh.local_devices, mesh.first_shard
-    cols = np.zeros((L, n_loc, k), np.int64)  # padded slots: column 0, value 0
+    stride = n_loc_c + ghost_map.shape[1]  # one shard's [own | ghost] block
+    # the flat columns, written in place (padded slots: the shard's column
+    # 0, value 0), so the host holds one int32 and one float64 per slot
+    flat = np.repeat(np.arange(L, dtype=np.int32) * stride, n_loc * k).reshape(L, n_loc, k)
     vals = np.zeros((L, n_loc, k), np.float64)
     for dl in range(L):
         d = first + dl
@@ -338,26 +341,31 @@ def build_halo_ell(csr, mesh: RowMesh, dtype=None, max_ppermute_offsets=None) ->
         counts = np.diff(indptr[d * n_loc: (d + 1) * n_loc + 1])
         rows_local = np.repeat(np.arange(n_loc), counts)
         slot = np.arange(hi - lo) - np.repeat(indptr[d * n_loc: (d + 1) * n_loc] - lo, counts)
-        cols[dl, rows_local, slot] = remap
+        flat[dl, rows_local, slot] = remap + dl * stride
         vals[dl, rows_local, slot] = data[lo:hi]
-    return halo_ell_of(cols, vals, send_idx, ghost_map, offs, perms, (n_rows, n_cols),
-                       mesh, dtype, wire_send, payload_send)
+    return _halo_ell(flat, vals, send_idx, ghost_map, offs, perms, (n_rows, n_cols), mesh,
+                     dtype, wire_send, payload_send)
 
 
 def halo_ell_of(cols, vals, send_idx, ghost_map, offsets, perms, shape, mesh: RowMesh,
                 dtype=torch.float64, wire_send=(), payload_send=()) -> HaloELL:
     """A HaloELL from the reference's arrays: cols / vals (L, n_loc, k) of
     this process's shards, send_idx / ghost_map of all D shards."""
-    L, n_loc, _ = cols.shape
-    D = mesh.n_devices
-    n_loc_c = shape[1] // D
-    G = ghost_map.shape[1]
-    flat = cols.astype(np.int64) + (np.arange(L) * (n_loc_c + G))[:, None, None]
+    L = cols.shape[0]
+    stride = shape[1] // mesh.n_devices + ghost_map.shape[1]
+    flat = cols.astype(np.int64) + (np.arange(L) * stride)[:, None, None]
+    return _halo_ell(flat.astype(np.int32), np.array(vals, np.float64), send_idx, ghost_map,
+                     offsets, perms, shape, mesh, dtype, wire_send, payload_send)
+
+
+def _halo_ell(flat, vals, send_idx, ghost_map, offsets, perms, shape, mesh: RowMesh, dtype,
+              wire_send, payload_send) -> HaloELL:
     return HaloELL(
-        vals=torch.from_numpy(np.array(vals, np.float64)).to(device=mesh.device, dtype=dtype),
-        flat_cols=torch.from_numpy(flat.astype(np.int32)).to(mesh.device),
-        ex=_exchange_of(send_idx, ghost_map, tuple(offsets), perms, n_loc_c, mesh),
-        shape=tuple(shape), n_loc=n_loc, n_loc_c=n_loc_c,
+        vals=torch.from_numpy(vals).to(device=mesh.device, dtype=dtype),
+        flat_cols=torch.from_numpy(flat).to(mesh.device),
+        ex=_exchange_of(send_idx, ghost_map, tuple(offsets), perms, shape[1] // mesh.n_devices,
+                        mesh),
+        shape=tuple(shape), n_loc=vals.shape[1], n_loc_c=shape[1] // mesh.n_devices,
         wire_send=tuple(wire_send), payload_send=tuple(payload_send),
     )
 

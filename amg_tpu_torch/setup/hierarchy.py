@@ -13,8 +13,8 @@ cost-model BSR tile; level 0 keeps its stencil or DIA operator), and so do
 the additive cycles' transfers (smoothed P~/R~, AFACj ideal P_id/R_id);
 `convert.hierarchy_from_arrays` puts them on the device in the solve dtype;
 the coarsest A becomes a dense inverse applied by one matmul. The injection
-restriction R_inj stays on the host (only the grid-parallel path reads it,
-ROADMAP item 11b).
+restriction R_inj stays on the host: no correction reads it, the
+grid-parallel ones included.
 `Level`/`Hierarchy` hold the device side of both this builder and the
 structured ones (`setup/structured.py`).
 """
@@ -266,8 +266,8 @@ def build_host_hierarchy(A: CSRMatrix, params: HierarchyParams) -> HostHierarchy
     return hh
 
 
-# the host transfers that go to the device; R_inj stays on the host (only
-# the grid-parallel path reads it, ROADMAP item 11b)
+# the host transfers that go to the device; R_inj stays on the host (no
+# correction reads it)
 DEVICE_TRANSFERS = ("P", "R", "P_s", "R_s", "P_id", "R_id")
 
 

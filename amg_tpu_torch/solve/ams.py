@@ -24,8 +24,9 @@ test). A group that does not fire computes nothing.
 `build_sharded_ams` / `solve_sharded_ams_pcg` run AMS-PCG row-sharded over a
 mesh of D shards (`parallel.dist`): the edge operator, G, G^T (and Pi, Pi^T)
 as halo operators (`parallel.spcomm`), the nodal hierarchies as halo
-hierarchies. The reference's grid-parallel AMS groups (plan_ams_groups,
-ams_grid_parallel_solve) are ROADMAP queue 1 item 11b.
+hierarchies. `ams_grid_parallel_solve` runs the async groups with grid
+parallelism over such a mesh: each shard computes the groups the work
+model gives it (`plan_ams_groups`) from the operator fields it owns.
 """
 
 from __future__ import annotations
@@ -260,23 +261,27 @@ class GeneratorAMSDraws:
         return u[0], u[1]
 
 
-def _groups(ams: AMSData, smoothed_transfers: bool):
-    """(Lg, correction(g, r)): the async solve's correction groups, the edge
-    smoother (g = 0), then each node level's additive correction prolonged
-    through G, then each Pi level's through Pi."""
-    nL = ams.node_hier.num_levels
-    Lg = 1 + nL + (ams.pi_hier.num_levels if ams.pi_hier is not None else 0)
-    cfg = CycleConfig(cycle=CycleType.MULTADD, smoother=SmootherType.L1_JACOBI,
-                      use_smoothed_transfers=smoothed_transfers)
+def _group_cfg(smoothed_transfers: bool) -> CycleConfig:
+    return CycleConfig(cycle=CycleType.MULTADD, smoother=SmootherType.L1_JACOBI,
+                       use_smoothed_transfers=smoothed_transfers)
 
-    def correction(g, r):
-        if g == 0:
-            return ams.inv_wscale * r
-        if g <= nL:
-            return ams.G @ additive_correction(ams.node_hier, cfg, ams.Gt @ r, g - 1)
-        return ams.Pi @ additive_correction(ams.pi_hier, cfg, ams.Pit @ r, g - 1 - nL)
 
-    return Lg, correction
+def _num_groups(ams: AMSData) -> int:
+    return 1 + ams.node_hier.num_levels + (ams.pi_hier.num_levels if ams.pi_hier is not None
+                                           else 0)
+
+
+def _group_correction(src, cfg: CycleConfig, g: int, r: torch.Tensor) -> torch.Tensor:
+    """Correction group g of the async solve, read from `src` (an AMSData or
+    a shard's view of one): the edge smoother (g = 0), then each node
+    level's additive correction prolonged through G, then each Pi level's
+    through Pi."""
+    nL = src.node_hier.num_levels
+    if g == 0:
+        return src.inv_wscale * r
+    if g <= nL:
+        return src.G @ additive_correction(src.node_hier, cfg, src.Gt @ r, g - 1)
+    return src.Pi @ additive_correction(src.pi_hier, cfg, src.Pit @ r, g - 1 - nL)
 
 
 def async_ams_eigs(A_dev, ams: AMSData, smoothed_transfers: bool = True):
@@ -285,17 +290,32 @@ def async_ams_eigs(A_dev, ams: AMSData, smoothed_transfers: bool = True):
     async solve's omega="auto" and its accelerations' coefficients."""
     from amg_tpu_torch.solve.accel import estimate_cycle_eigs
 
-    Lg, correction = _groups(ams, smoothed_transfers)
+    Lg, cfg = _num_groups(ams), _group_cfg(smoothed_transfers)
 
     def minv_a(u):
         r = A_dev @ u
         c = torch.zeros_like(u)
         for g in range(Lg):
-            c = c + correction(g, r)
+            c = c + _group_correction(ams, cfg, g, r)
         return c
 
     return estimate_cycle_eigs(minv_a, ams.inv_wscale.shape[0], ams.inv_wscale.dtype,
                                num_iters=20, device=ams.inv_wscale.device)
+
+
+def _auto_omega(cheby_coeffs) -> float:
+    # 0.7x the synchronous Richardson optimum of the group-sum operator,
+    # backed off for staleness (the reference's choice)
+    return float(0.7 * 2.0 / (cheby_coeffs.alpha + cheby_coeffs.beta))
+
+
+def _fire_and_cols(draws: AMSDrawSource, Lg: int, fire_prob: float, delay: int, k: int):
+    """Step k's draws: which groups fire, and the snapshot each reads, in
+    [max(k - delay, 0), k]."""
+    fire_u, col_u = draws.step(Lg)
+    low = max(k - delay, 0)
+    return (np.asarray(fire_u) < fire_prob,
+            np.round(low + np.asarray(col_u) * (k - low)).astype(np.int64))
 
 
 def ams_async_additive_solve(
@@ -329,69 +349,40 @@ def ams_async_additive_solve(
     three-term recurrences at each group's own rate, the cheby_grid group's
     momentum, restarted every cheby_restart group-cycles), "richardson" its
     constant-omega form. draws=None takes GeneratorAMSDraws(seed)."""
+    from amg_tpu_torch.solve.async_sim import _Accel
+
     device = _check_ams_device(ams, device)
     dtype = ams.inv_wscale.dtype
     b = torch.as_tensor(b).to(device=device, dtype=dtype)
     x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
     if draws is None:
         draws = GeneratorAMSDraws(seed)
-    Lg, group_correction = _groups(ams, smoothed_transfers)
+    Lg, cfg = _num_groups(ams), _group_cfg(smoothed_transfers)
     W = sim_read_delay + 1
     accel_on = accel in ("cheby", "richardson")
-    cg = min(max(cheby_grid, 0), Lg - 1)
 
     if cheby_coeffs is None and (accel_on or omega == "auto"):
         cheby_coeffs = async_ams_eigs(A_dev, ams, smoothed_transfers)
     if omega == "auto":
-        # 0.7x the synchronous Richardson optimum of the group-sum operator,
-        # backed off for staleness (the reference's choice)
-        omega = float(0.7 * 2.0 / (cheby_coeffs.alpha + cheby_coeffs.beta))
-    mu = float(cheby_coeffs.mu) if accel_on else 2.0
-    delta = float(cheby_coeffs.delta) * cheby_damp if accel_on else 0.0
+        omega = _auto_omega(cheby_coeffs)
+    acc = _Accel(accel, Lg, float(cheby_coeffs.mu), float(cheby_coeffs.delta) * cheby_damp,
+                 cheby_grid, b, restart=cheby_restart) if accel_on else None
 
     r0n = float(torch.linalg.norm(b - A_dev @ x0))
     safe = 1.0 if r0n == 0.0 else r0n
     ring = x0.unsqueeze(0).repeat(W, 1)
     x = x0
-    d_dir = torch.zeros_like(x0)
-    # the recurrences' per-group scalars live on the host, in float64
-    cheb_c = np.full(Lg, mu)
-    cheb_cp = np.ones(Lg)
-    cyc = np.zeros(Lg, dtype=np.int64)
     hist = [1.0]
     rel, k = 1.0, 0
     while k < max_cycles and rel > tol and rel < 1e3:
-        fire_u, col_u = draws.step(Lg)
-        fire = np.asarray(fire_u) < fire_prob
-        low = max(k - sim_read_delay, 0)
-        cols = np.round(low + np.asarray(col_u) * (k - low)).astype(np.int64)
-        if accel_on:
-            c_next = 2.0 * mu * cheb_c - cheb_cp
-            if accel == "richardson":
-                om = np.full(Lg, 2.0 / (1.0 + (1.0 - 1.0 / (mu ** 2)) ** 0.5))
-            else:
-                om = 2.0 * mu * cheb_c / c_next
-            first_f = cyc == 0
-            g_scale = np.where(first_f, 1.0, om * delta)
-        else:
-            g_scale = np.full(Lg, omega)
+        fire, cols = _fire_and_cols(draws, Lg, fire_prob, sim_read_delay, k)
+        g_scale = acc.scales() if accel_on else np.full(Lg, omega)
         c = torch.zeros_like(x)
         for g in np.flatnonzero(fire):
             r_g = b - A_dev @ ring[cols[g] % W]
-            c = c + float(g_scale[g]) * group_correction(int(g), r_g)
+            c = c + float(g_scale[g]) * _group_correction(ams, cfg, int(g), r_g)
         if accel_on:
-            if fire[cg] and not first_f[cg]:
-                c = c + float(om[cg] - 1.0) * d_dir
-            d_dir = c if fire[cg] else d_dir + c
-            adv = fire & ~first_f
-            cheb_cp = np.where(adv, cheb_c, cheb_cp)
-            cheb_c = np.where(adv, c_next, cheb_c)
-            cyc = cyc + fire
-            if cheby_restart > 0:
-                wrap = cyc >= cheby_restart
-                cyc = np.where(wrap, 0, cyc)
-                cheb_c = np.where(wrap, mu, cheb_c)
-                cheb_cp = np.where(wrap, 1.0, cheb_cp)
+            c = acc.finish(c, fire)
         x = x + c
         rel = float(torch.linalg.norm(b - A_dev @ x)) / safe
         hist.append(rel)
@@ -399,3 +390,201 @@ def ams_async_additive_solve(
         ring[k % W] = x
     return SolveResult(x=x, iters=k, rel_resnorm=torch.tensor(rel, dtype=dtype),
                        history=nan_padded(hist, max_cycles + 1, dtype, device))
+
+
+def plan_ams_groups(ams: AMSData, num_devices: int):
+    """The work model's assignment of the AMS correction groups to the
+    shards of a mesh (the AssignProcs analog, src/DMEM_Setup.cpp:1638-1759),
+    the reference's: the edge smoother weighs the edge count, an auxiliary
+    level k the nnz of one transfer per chain level above it, halved, plus
+    its A's nnz, at least 1. Device matrices carry no `nnz` in either
+    package, so every auxiliary level weighs 1, and the work goes to the
+    assignment unnormalised, so with more groups than shards every group
+    lands on the last shard (ROADMAP F13). Returns (groups_of, scale),
+    scale[g] = 1 / (the shards sharing group g)."""
+    from amg_tpu_torch.parallel.partition import assign_levels_to_devices
+
+    def level_work(hier):
+        out = []
+        for k in range(hier.num_levels):
+            w = 0.0
+            for j in range(k):
+                lv = hier.levels[j]
+                for f in ("R_s", "R", "P_s", "P"):
+                    op = getattr(lv, f, None)
+                    if op is not None and hasattr(op, "nnz"):
+                        w += op.nnz / 2.0  # one R and one P walk the chain
+                        break
+            w += getattr(hier.levels[k].A, "nnz", 0) or 0
+            out.append(max(w, 1.0))
+        return out
+
+    work = [float(ams.inv_wscale.shape[0])] + level_work(ams.node_hier)
+    if ams.pi_hier is not None:
+        work += level_work(ams.pi_hier)
+    assignment = assign_levels_to_devices(np.asarray(work), num_devices)
+    groups_of = [[] for _ in range(num_devices)]
+    scale = np.zeros(len(work))
+    for g, (s, e) in enumerate(assignment):
+        e = max(e, s + 1)
+        scale[g] = 1.0 / (e - s)
+        for d in range(s, min(e, num_devices)):
+            groups_of[d].append(g)
+    return tuple(tuple(gs) for gs in groups_of), scale
+
+
+def _ams_owned_rows(ams: AMSData, groups_of, cfg_add: CycleConfig):
+    """Per shard, the operator fields its AMS groups read: the edge scale
+    (group 0); G, G^T and the node hierarchy's chain down to its level with
+    that level's A and smoother, or the coarse inverse (node groups); Pi,
+    Pi^T and the vector-nodal chain likewise (Pi groups). Every group owns
+    its copies, the reference's redistributed gridk ownership."""
+    nL = ams.node_hier.num_levels
+
+    def chain_fields(tag, hier, k, row):
+        for j in range(k):
+            lv = hier.levels[j]
+            if cfg_add.use_smoothed_transfers and lv.R_s is not None:
+                row[(tag, j, "R_s")] = lv.R_s
+            else:
+                row[(tag, j, "R")] = lv.R
+            if cfg_add.use_smoothed_transfers and lv.P_s is not None:
+                row[(tag, j, "P_s")] = lv.P_s
+            else:
+                row[(tag, j, "P")] = lv.P
+        if k == hier.num_levels - 1:
+            row[(tag, "coarse")] = hier.coarse_Ainv
+        else:
+            row[(tag, k, "A")] = hier.levels[k].A
+            row[(tag, k, "sm")] = hier.levels[k].sm
+
+    rows = []
+    for gs in groups_of:
+        row = {}
+        for g in gs:
+            if g == 0:
+                row[("edge", "inv_wscale")] = ams.inv_wscale
+            elif g <= nL:
+                row[("G",)] = ams.G
+                row[("Gt",)] = ams.Gt
+                chain_fields("n", ams.node_hier, g - 1, row)
+            else:
+                row[("Pi",)] = ams.Pi
+                row[("Pit",)] = ams.Pit
+                chain_fields("p", ams.pi_hier, g - 1 - nL, row)
+        rows.append(row)
+    return rows
+
+
+def _ams_view(ams: AMSData, row: dict):
+    """A shard's AMS view from its owned row (its values on the solve's
+    device): the edge scale, G / G^T, Pi / Pi^T and the two auxiliary
+    hierarchies' views, each raising on a field the shard does not own."""
+    from amg_tpu_torch.parallel.grid import LEVEL_FIELDS, OwnedFields, OwnedView
+
+    def hier_view(tag, hier):
+        if hier is None:
+            return None
+        levels = []
+        for j, lv in enumerate(hier.levels):
+            levels.append(OwnedFields(f"{tag} level {j}", {
+                f: row.get((tag, j, f)) for f in LEVEL_FIELDS
+                if (tag, j, f) in row or getattr(lv, f) is None}))
+        return OwnedView(levels, row.get((tag, "coarse")), (tag, "coarse") in row)
+
+    top = {"node_hier": hier_view("n", ams.node_hier), "pi_hier": hier_view("p", ams.pi_hier)}
+    for key, name in ((("edge", "inv_wscale"), "inv_wscale"), (("G",), "G"), (("Gt",), "Gt"),
+                      (("Pi",), "Pi"), (("Pit",), "Pit")):
+        if key in row:
+            top[name] = row[key]
+    return OwnedFields("the AMS groups", top)
+
+
+def ams_grid_parallel_solve(
+    A_dev,
+    ams: AMSData,
+    mesh,
+    b,
+    x0: Optional[torch.Tensor] = None,
+    draws: Optional[AMSDrawSource] = None,
+    seed: int = 0,
+    fire_prob: float = 0.8,
+    sim_read_delay: int = 2,
+    tol: float = 1e-6,
+    max_cycles: int = 600,
+    cheby_coeffs=None,
+):
+    """The asynchronous additive Maxwell solve over the shards of `mesh`
+    (a RowMesh; its device runs the solve): `ams_async_additive_solve`'s
+    groups and draws, but shard d computes only its groups of
+    `plan_ams_groups`, each scaled by 1 / (the shards sharing it), from the
+    operator fields it owns; the fine edge operator is replicated. omega is
+    "auto", from cheby_coeffs (None: `async_ams_eigs`). A
+    superstep sums the shards' partial corrections once, in shard order,
+    and the shards' row-range partials of the residual norm once (across
+    processes: one all-gather each, then the same sums). Stops at
+    rel <= tol, after max_cycles, or at rel >= 1e3 (divergence).
+    draws=None takes GeneratorAMSDraws(seed). Returns (SolveResult,
+    owned_bytes), the bytes of each shard's owned fields."""
+    from amg_tpu_torch.parallel.grid import (
+        _gathered,
+        _seq_sum,
+        _shard_norm_partials,
+        _shard_sum,
+        field_bytes,
+        on_device,
+    )
+
+    D = mesh.n_devices
+    device = mesh.device
+    dtype = ams.inv_wscale.dtype
+    b = torch.as_tensor(b).to(device=device, dtype=dtype)
+    x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
+    if draws is None:
+        draws = GeneratorAMSDraws(seed)
+    Lg, cfg_add = _num_groups(ams), _group_cfg(True)
+    W = sim_read_delay + 1
+    groups_of, gscale = plan_ams_groups(ams, D)
+    omega = _auto_omega(cheby_coeffs if cheby_coeffs is not None
+                        else async_ams_eigs(A_dev, ams))
+
+    rows = _ams_owned_rows(ams, groups_of, cfg_add)
+    owned_bytes = [sum(field_bytes(v) for v in row.values()) for row in rows]
+    local = list(range(mesh.first_shard, mesh.first_shard + mesh.local_devices))
+    memo = {}
+    A = on_device(A_dev, device, memo)
+    views = {d: _ams_view(ams, {k: on_device(v, device, memo) for k, v in rows[d].items()})
+             for d in local}
+
+    def norm(r):
+        part = _shard_norm_partials(r, D)[mesh.first_shard: mesh.first_shard + len(local)]
+        return float(np.sqrt(_seq_sum(_gathered(mesh, part.unsqueeze(1))[:, 0])))
+
+    r0n = norm(b - A @ x0)
+    safe = 1.0 if r0n == 0.0 else r0n
+    ring = x0.unsqueeze(0).repeat(W, 1)
+    x = x0
+    hist = [1.0]
+    rel, k = 1.0, 0
+    while k < max_cycles and rel > tol and rel < 1e3:
+        fire, cols = _fire_and_cols(draws, Lg, fire_prob, sim_read_delay, k)
+        working = [d for d in range(D) if any(fire[g] for g in groups_of[d])]
+        c_part = {}
+        for d in local:
+            if d not in working:
+                continue
+            c = None
+            for g in groups_of[d]:
+                if fire[g]:
+                    r_g = b - A @ ring[cols[g] % W]
+                    cg_ = float(gscale[g]) * _group_correction(views[d], cfg_add, g, r_g)
+                    c = cg_ if c is None else c + cg_
+            c_part[d] = c
+        if working:
+            x = x + omega * _shard_sum(mesh, c_part, working, b)
+        rel = norm(b - A @ x) / safe
+        hist.append(rel)
+        k += 1
+        ring[k % W] = x
+    return SolveResult(x=x, iters=k, rel_resnorm=torch.tensor(rel, dtype=dtype),
+                       history=nan_padded(hist, max_cycles + 1, dtype, device)), owned_bytes

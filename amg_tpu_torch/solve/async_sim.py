@@ -39,8 +39,9 @@ from amg_tpu_torch.solve.driver import _check_device, nan_padded
 
 @dataclass(frozen=True)
 class AsyncConfig:
-    """The async execution knobs, the reference's, with its defaults (its
-    converge_test_type is read only by the grid-parallel solver)."""
+    """The async execution knobs, the reference's, with its defaults
+    (converge_test_type is read only by the grid-parallel solver,
+    `parallel.grid.grid_parallel_solve`)."""
 
     read_type: str = "sol"  # "sol": r from the stale x | "res": the stale r
     # "recompute": the true residual each step | "update": r -= A (applied
@@ -70,6 +71,10 @@ class AsyncConfig:
     fail_level: int = -1
     fail_start: int = 0
     fail_duration: int = 0
+    # "global": stop when the summed residual meets tol | "local": each grid
+    # group stops correcting once its own residual view does, and the solve
+    # ends when every group has stopped
+    converge_test_type: str = "global"
 
 
 class GridWaitStats(NamedTuple):
@@ -172,42 +177,143 @@ def async_solve(
     return _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles)
 
 
-def _fire_probs(acfg: AsyncConfig, L: int) -> np.ndarray:
-    p = np.full(L, acfg.fire_prob)
-    for lvl in acfg.delay_levels:
-        p[lvl] = acfg.delay_prob
-    return p
+class _Firing:
+    """Who fires each step: each level's firing uniform against its
+    probability (delay_levels: delay_prob), or in wait-counter mode
+    (sim_grid_wait > 0) its countdown, drawn here and redrawn from the
+    step's uniform on each fire; fail_level is then held off in its
+    window."""
+
+    def __init__(self, acfg: AsyncConfig, L: int, draws: DrawSource):
+        self.acfg = acfg
+        self.probs = np.full(L, acfg.fire_prob)
+        for lvl in acfg.delay_levels:
+            self.probs[lvl] = acfg.delay_prob
+        self.waits = None
+        if acfg.sim_grid_wait > 0:
+            self.waits = np.round(draws.wait_uniforms(L) * acfg.sim_grid_wait).astype(np.int64)
+
+    def mask(self, u: np.ndarray, k: int) -> np.ndarray:
+        a = self.acfg
+        if self.waits is not None:
+            fire = self.waits <= 0
+            redraw = np.round(u * a.sim_grid_wait).astype(np.int64)
+            self.waits = np.where(fire, redraw, self.waits - 1)
+        else:
+            fire = u < self.probs
+        if 0 <= a.fail_level < fire.shape[0] and \
+                a.fail_start <= k < a.fail_start + a.fail_duration:
+            fire[a.fail_level] = False
+        return fire
 
 
-def _read_full(ring, last_read, k, delay, u):
-    """Per row, a snapshot index col in [max(k - delay, 0, last read), k]:
-    (the stale vector, col)."""
-    low = torch.clamp(last_read, min=max(k - delay, 0))
-    col = torch.round(low + u * (k - low))
-    stale = ring.gather(0, (col.long() % ring.shape[0]).unsqueeze(0)).squeeze(0)
-    return stale, col.to(torch.int32)
+class _WaitCounter:
+    """Grid-wait accounting in apply order: a firing level's wait is the
+    number of global corrections that landed since its last apply."""
+
+    def __init__(self, L: int):
+        self.stats = GridWaitStats(total=np.zeros(L), count=np.zeros(L, np.int64),
+                                   min=np.full(L, np.inf), max=np.full(L, -np.inf))
+        self._marks = np.zeros(L, np.int64)
+        self._count = 0
+
+    def record(self, perm, fire):
+        gw = self.stats
+        for p in perm:
+            if fire[p]:
+                wait = self._count - self._marks[p]
+                gw.total[p] += wait
+                gw.count[p] += 1
+                gw.min[p] = min(gw.min[p], wait)
+                gw.max[p] = max(gw.max[p], wait)
+                self._marks[p] = self._count
+                self._count += 1
+
+
+class _Accel:
+    """The asymmetric Chebyshev ("cheby") or Richardson ("richardson")
+    recurrences, host scalars in float64: each level advances its own
+    three-term recurrence at its own firing rate (its correction scaled by
+    omega_k * delta, raw on its first fire), restarted every `restart`
+    fires (0: never), and level cg carries the direction d, the total update
+    since its last fire."""
+
+    def __init__(self, kind: str, L: int, mu: float, delta: float, cg: int,
+                 like: torch.Tensor, restart: int = 0):
+        self.mu, self.delta, self.restart = mu, delta, restart
+        self.cg = min(max(cg, 0), L - 1)
+        self.om_rich = 2.0 / (1.0 + (1.0 - 1.0 / (mu ** 2)) ** 0.5) if kind == "richardson" \
+            else None
+        self.c, self.cp = np.full(L, mu), np.ones(L)  # T_1 = mu, T_0 = 1
+        self.cyc = np.zeros(L, np.int64)  # per-level fires since the (re)start
+        self.d_dir = torch.zeros_like(like)
+
+    def scales(self) -> np.ndarray:
+        """This step's factor of each level's correction."""
+        self._c_next = 2.0 * self.mu * self.c - self.cp
+        self._om = np.full(self.c.shape[0], self.om_rich) if self.om_rich is not None \
+            else 2.0 * self.mu * self.c / self._c_next
+        self._first = self.cyc == 0
+        return np.where(self._first, 1.0, self._om * self.delta)
+
+    def finish(self, total_c: Optional[torch.Tensor], fire: np.ndarray):
+        """The step's update from its summed scaled corrections (None: none
+        landed): level cg's momentum added where it fires, d updated, the
+        recurrences advanced."""
+        cg = self.cg
+        if fire[cg] and not self._first[cg]:
+            total_c = total_c + (self._om[cg] - 1.0) * self.d_dir
+        if total_c is not None:
+            self.d_dir = total_c if fire[cg] else self.d_dir + total_c
+        adv = fire & ~self._first
+        self.cp = np.where(adv, self.c, self.cp)
+        self.c = np.where(adv, self._c_next, self.c)
+        self.cyc = self.cyc + fire
+        if self.restart > 0:
+            wrap = self.cyc >= self.restart
+            self.cyc = np.where(wrap, 0, self.cyc)
+            self.c = np.where(wrap, self.mu, self.c)
+            self.cp = np.where(wrap, 1.0, self.cp)
+        return total_c
+
+
+def _check_accel(acfg: AsyncConfig) -> bool:
+    accel_on = acfg.accel in ("cheby", "richardson")
+    if accel_on and not (acfg.cheby_mu > 1.0 and acfg.cheby_delta > 0.0):
+        raise ValueError("async accel needs cheby_mu/cheby_delta from cheby_setup's bounds")
+    return accel_on
+
+
+def _stale_read_cols(acfg: AsyncConfig, last_read, k: int, u):
+    """The stale-read columns of one level from its read uniform(s) `u`:
+    per row in FULL mode (last_read and u tensors), one scalar in SEMI
+    mode, in [max(k - delay, 0, last read), k]."""
+    if acfg.async_type == "full":
+        low = torch.clamp(last_read, min=max(k - acfg.sim_read_delay, 0))
+        return torch.round(low + u * (k - low)).to(torch.int32)
+    low = max(k - acfg.sim_read_delay, 0, last_read)
+    return int(np.round(low + u * (k - low)))
+
+
+def _gather_stale(acfg: AsyncConfig, ring, cols):
+    W = acfg.sim_read_delay + 1
+    if acfg.async_type == "full":
+        return ring.gather(0, (cols.long() % W).unsqueeze(0)).squeeze(0)
+    return ring[cols % W]
 
 
 def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
     A0 = hier.levels[0].A
     n = b.shape[0]
     L = hier.num_levels
-    delay = acfg.sim_read_delay
-    W = delay + 1  # ring depth
+    W = acfg.sim_read_delay + 1  # ring depth
     full = acfg.async_type == "full"
     sol = acfg.read_type == "sol"
     update = acfg.res_mode == "update"
     E = max(int(acfg.comm_every), 1)
-    accel_on = acfg.accel in ("cheby", "richardson")
+    accel_on = _check_accel(acfg)
     if accel_on and E != 1:
         raise ValueError("async accel does not compose with comm coalescing (comm_every > 1)")
-    if accel_on and not (acfg.cheby_mu > 1.0 and acfg.cheby_delta > 0.0):
-        raise ValueError("async accel needs cheby_mu/cheby_delta from cheby_setup's bounds")
-    probs = _fire_probs(acfg, L)
-    cg = min(max(acfg.cheby_grid, 0), L - 1)
-    mu = acfg.cheby_mu if accel_on else 2.0
-    delta = acfg.cheby_delta
-    om_rich = 2.0 / (1.0 + (1.0 - 1.0 / (acfg.cheby_mu ** 2)) ** 0.5) if accel_on else None
 
     r0 = b - A0 @ x0
     r0norm = torch.linalg.norm(r0)
@@ -216,16 +322,10 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
     last_read = (torch.zeros((L, n), dtype=torch.int32, device=b.device) if full
                  else [0] * L)
     pending = torch.zeros((L, n), dtype=b.dtype, device=b.device) if E > 1 else None
-    gw = GridWaitStats(total=np.zeros(L), count=np.zeros(L, np.int64),
-                       min=np.full(L, np.inf), max=np.full(L, -np.inf))
-    marks = np.zeros(L, np.int64)
-    gcount = 0
-    d_dir = torch.zeros_like(b) if accel_on else None
-    cheb_c, cheb_cp = np.full(L, mu), np.ones(L)  # T_1 = mu, T_0 = 1
-    cyc = np.zeros(L, np.int64)  # per-level fire counts
-    waits = np.zeros(L, np.int64)
-    if acfg.sim_grid_wait > 0:
-        waits = np.round(draws.wait_uniforms(L) * acfg.sim_grid_wait).astype(np.int64)
+    waits = _WaitCounter(L)
+    accel = _Accel(acfg.accel, L, acfg.cheby_mu, acfg.cheby_delta, acfg.cheby_grid, b) \
+        if accel_on else None
+    firing = _Firing(acfg, L, draws)
 
     x, r_state = x0, r0
     relnorm = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
@@ -233,54 +333,34 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
     k, rel = 0, float("inf")
     while k < max_cycles and rel > tol:
         u, perm = draws.step(L)
-        if acfg.sim_grid_wait > 0:
-            fire = waits <= 0
-            redraw = np.round(u * acfg.sim_grid_wait).astype(np.int64)
-            waits = np.where(fire, redraw, waits - 1)
-        else:
-            fire = u < probs
-        if 0 <= acfg.fail_level < L and \
-                acfg.fail_start <= k < acfg.fail_start + acfg.fail_duration:
-            fire[acfg.fail_level] = False
+        fire = firing.mask(u, k)
         if accel_on:
-            c_next = 2.0 * mu * cheb_c - cheb_cp
-            om = np.full(L, om_rich) if acfg.accel == "richardson" else 2.0 * mu * cheb_c / c_next
-            first = cyc == 0
+            lvl_scale = accel.scales()
 
         total_c = None
         for lvl in np.flatnonzero(fire):
             lvl = int(lvl)
-            if full:
-                stale, col = _read_full(ring, last_read[lvl], k, delay,
-                                        draws.read_rows(lvl, n, b.dtype, b.device))
-                last_read[lvl] = col
-            else:
-                low = max(k - delay, 0, last_read[lvl])
-                col = int(np.round(low + draws.read_scalar(lvl) * (k - low)))
-                stale = ring[col % W]
-                last_read[lvl] = col
+            u_read = (draws.read_rows(lvl, n, b.dtype, b.device) if full
+                      else draws.read_scalar(lvl))
+            col = _stale_read_cols(acfg, last_read[lvl], k, u_read)
+            last_read[lvl] = col
+            stale = _gather_stale(acfg, ring, col)
             if sol:
                 r_stale = b - A0 @ (stale + pending[lvl] if E > 1 else stale)
             else:
                 r_stale = stale - A0 @ pending[lvl] if E > 1 else stale
             c = additive_correction(hier, cfg, r_stale, lvl)
             if accel_on:
-                c = c * (1.0 if first[lvl] else om[lvl] * delta)
+                c = c * float(lvl_scale[lvl])
             if E > 1:
                 pending[lvl] += acfg.omega * c
             else:
                 total_c = c if total_c is None else total_c + c
 
         if accel_on:
-            if fire[cg] and not first[cg]:
-                total_c = total_c + (om[cg] - 1.0) * d_dir
+            total_c = accel.finish(total_c, fire)
             if total_c is not None:
                 x = x + total_c
-                d_dir = total_c if fire[cg] else d_dir + total_c
-            adv = fire & ~first
-            cheb_cp = np.where(adv, cheb_c, cheb_cp)
-            cheb_c = np.where(adv, c_next, cheb_c)
-            cyc += fire
         elif E > 1:
             if (k + 1) % E == 0:  # publish
                 total_c = pending.sum(dim=0)
@@ -289,18 +369,7 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
         elif total_c is not None:
             total_c = acfg.omega * total_c
             x = x + total_c
-
-        # grid waits, in apply order: the global corrections that landed
-        # since this level's last apply
-        for p in perm:
-            if fire[p]:
-                wait = gcount - marks[p]
-                gw.total[p] += wait
-                gw.count[p] += 1
-                gw.min[p] = min(gw.min[p], wait)
-                gw.max[p] = max(gw.max[p], wait)
-                marks[p] = gcount
-                gcount += 1
+        waits.record(perm, fire)
 
         if update:
             if total_c is not None:
@@ -317,4 +386,4 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
         hist.append(rel)
     return AsyncResult(x=x, iters=k, rel_resnorm=relnorm,
                        history=nan_padded(hist, max_cycles + 1, b.dtype, b.device),
-                       grid_wait=gw)
+                       grid_wait=waits.stats)

@@ -1,5 +1,7 @@
-"""The extended-system BPX solver on one device: the whole multilevel
-operator as one system (counterpart of amg_tpu/solve/extended.py).
+"""The extended-system BPX solver: the whole multilevel operator as one
+system (counterpart of amg_tpu/solve/extended.py), on one device or, with
+grid parallelism, with its level blocks on the shards of a row mesh
+(`build_sharded_extended_system`).
 
 With Pchain_k = P_0 ... P_{k-1} (level k -> level 0) and
 C = [Pchain_0 | ... | Pchain_{L-1}], the extended system is the Galerkin
@@ -82,6 +84,84 @@ def build_extended_system(
         AA = ell(AA_sp)
     return ExtendedSystem(pchains=pchains, rchains=rchains, inv_wdiag=inv_wdiag, AA=AA,
                           offsets=tuple(offsets))
+
+
+def build_sharded_extended_system(
+    hh, params, mesh, imbalance: float = 0.0, assign_policy: str = "balanced",
+    assign_scalar: float = 0.5,
+) -> ExtendedSystem:
+    """Grid parallelism on the extended system, over the shards of `mesh`
+    (a RowMesh, one process; on its device): each level block padded to the
+    shard range of its work-model group (`parallel.dist.pad_extended_layout`,
+    the reference's AssignProcs split applied to the flattened PAR_BPX
+    system), so that a plain row split of the flat vector puts level k's
+    rows on its group's shards. AA, assembled with its padding in one COO
+    pass, is a HaloELL row-sharded over the mesh: shard d holds exactly its
+    levels' block rows, and its ghost exchange is the gridj -> gridk
+    correction exchange (`parallel.spcomm.comm_trace` counts it). Padding
+    rows carry a unit diagonal and a zero inv_wdiag, so they never move.
+    The chains keep the padded block widths; `ext_matvec`,
+    `estimate_cycle_eigs` and `ext_solve` take the system unchanged."""
+    from amg_tpu_torch.parallel.dist import pad_extended_layout
+    from amg_tpu_torch.parallel.partition import assign_levels_to_devices, compute_level_work
+    from amg_tpu_torch.parallel.spcomm import build_halo_ell
+
+    mesh.require_one_process("the grid-mapped extended system (ext_solve reads whole vectors)")
+    device = mesh.device
+    L = hh.num_levels
+    D = mesh.n_devices
+    dtype = params.dtype
+    sizes = [lv.A.n_rows for lv in hh.levels]
+    work = compute_level_work(hh, imbalance=imbalance)
+    assignment = assign_levels_to_devices(work, D, policy=assign_policy, scalar=assign_scalar)
+    p_off, p_total, row_owner = pad_extended_layout(sizes, assignment, D)
+
+    A0 = hh.levels[0].A.to_scipy()
+    n0 = sizes[0]
+    chains = [sp.identity(n0, format="csr")]
+    for k in range(L - 1):
+        chains.append((chains[-1] @ hh.levels[k].P.to_scipy()).tocsr())
+
+    def ell(m):
+        return ell_from_csr(CSRMatrix.from_scipy(m), dtype=dtype, device=device)
+
+    pch = []
+    for k in range(L):  # n0 x block width, the level's columns first
+        c = chains[k].tocsr().copy()
+        c.resize((n0, p_off[k + 1] - p_off[k]))
+        pch.append(c)
+    pchains = tuple(ell(c) for c in pch)
+    rchains = tuple(ell(c.T.tocsr()) for c in pch)
+
+    # AA_{l,m} = chain_l^T A0 chain_m, every block and the padding's unit
+    # diagonal in one COO pass
+    rows_all, cols_all, data_all = [], [], []
+    for l in range(L):
+        left = (chains[l].T @ A0).tocsr()
+        for m in range(L):
+            blk = (left @ chains[m]).tocoo()
+            rows_all.append(blk.row + p_off[l])
+            cols_all.append(blk.col + p_off[m])
+            data_all.append(blk.data)
+    pad_rows = np.flatnonzero(row_owner < 0)
+    rows_all.append(pad_rows)
+    cols_all.append(pad_rows)
+    data_all.append(np.ones(pad_rows.size))
+    AA_sp = sp.coo_matrix((np.concatenate(data_all),
+                           (np.concatenate(rows_all), np.concatenate(cols_all))),
+                          shape=(p_total, p_total)).tocsr()
+    AA_sp.data[np.abs(AA_sp.data) < 1e-300] = 0.0
+    AA_sp.eliminate_zeros()
+    AA = build_halo_ell(CSRMatrix.from_scipy(AA_sp), mesh, dtype=dtype)
+
+    inv_wdiag = np.zeros(p_total)
+    for k, lv in enumerate(hh.levels):
+        d = lv.A.diagonal()
+        d = np.where(d == 0.0, 1.0, d)
+        inv_wdiag[p_off[k]: p_off[k] + sizes[k]] = lv.weight / d
+    return ExtendedSystem(pchains=pchains, rchains=rchains,
+                          inv_wdiag=torch.from_numpy(inv_wdiag).to(device=device, dtype=dtype),
+                          AA=AA, offsets=tuple(p_off))
 
 
 def ext_prolong(ext: ExtendedSystem, U: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,11 @@ unchanged so that a set of options means the same run in both packages.
 `amg_tpu_torch/utils/cli.py` exposes the same flag names.
 
 The multi-device fields (`num_devices`, `grid_parallel`, `comm`, `imbal`,
-`assign_procs*`, `converge_test_type`) are kept, since the CLI parses them;
-`utils/runner.py` runs the row-partitioned branches of `num_devices > 1`
-and refuses the grid-parallel ones (ROADMAP item 11b), so `imbal`,
-`assign_procs*` and `converge_test_type` are read by nothing yet.
+`assign_procs*`, `converge_test_type`) mean what they mean in the
+reference: `utils/runner.py` runs the row-partitioned branches of
+`num_devices > 1` with `comm`, and its grid (level) parallel branches with
+the work model's `imbal` and `assign_procs*` and the grid solve's
+`converge_test_type`.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Experiment orchestrator (counterpart of amg_tpu/utils/runner.py):
-options -> problem -> setup -> solve -> stats, on one device.
+options -> problem -> setup -> solve -> stats, on one device or over a mesh
+of logical shards.
 
-`run_experiment(opts, device=None, draws=None)` runs every single-device
-configuration of the reference's runner, branch by branch in its order.
+`run_experiment(opts, device=None, draws=None)` runs every configuration of
+the reference's runner, branch by branch in its order.
 It is `solve_experiment(setup_experiment(opts, device), draws)`: the two
 halves let a caller keep the built hierarchy (`Experiment.hier`) beside the
 result. Where the port differs:
@@ -29,12 +30,14 @@ result. Where the port differs:
     the processes of an initialized process group when there is one): the
     structured hierarchy on the mesh, `build_dist_hierarchy` (comm "halo" or
     "gspmd") for the generic solves, the halo operators of one-level async
-    smoothing, the sharded AMS-PCG. No kernel runs there, as in the
+    smoothing, the sharded AMS-PCG; and its grid (level) parallel branches
+    over the same mesh (`parallel.grid`), where the reference keeps the
+    replicated hierarchy: the extended system with its level blocks on the
+    work model's shards, the async additive solvers with grid parallelism
+    and async AMS over its groups. No kernel runs there, as in the
     reference (the DIA hierarchy takes its plain form, the fused structured
-    solve is not taken). The grid-parallel branches (the extended system,
-    the async solvers with grid parallelism, async AMS) raise: ROADMAP
-    queue 1 item 11b. The reference's fixed-tile `-device_format bsr` is not
-    ported (ROADMAP, "Not ported") and raises.
+    solve is not taken). The reference's fixed-tile `-device_format bsr` is
+    not ported (ROADMAP, "Not ported") and raises.
 """
 
 from __future__ import annotations
@@ -213,6 +216,8 @@ class Experiment:
     A_acc: Any = None  # float64 outer operator (mixed_pcg)
     done: bool = False  # only_build_matrix / only_setup: nothing to solve
     mesh: Any = None  # the row mesh of a row-sharded hierarchy (num_devices > 1)
+    # the mesh of a grid (level) parallel run, whose hierarchy is replicated
+    grid_mesh: Any = None
     pad_info: Any = None  # (n, padded n) of the mesh's vectors
 
 
@@ -224,8 +229,6 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
 
     device = resolve_device(device)
     opts.fixup()
-    if opts.num_devices > 1:
-        _refuse_grid_parallel(opts)
     if opts.device_format == "bsr":
         raise ValueError(
             "device_format 'bsr' (the reference's fixed-tile BSR) is not ported "
@@ -378,34 +381,17 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
     return exp
 
 
-def _refuse_grid_parallel(opts: SolverOptions) -> None:
-    """The multi-device branches that are grid (level) parallel raise: the
-    extended system over a mesh, the async solvers with grid parallelism and
-    async AMS over a mesh (ROADMAP queue 1 item 11b)."""
-    from amg_tpu_torch.parallel.dist import NOT_PORTED_GRID
-
-    if opts.hierarchy == "structured":
-        return  # the structured multi-device path row-shards
-    if opts.solver in EXT_SOLVERS and opts.grid_parallel:
-        raise NotImplementedError(f"{opts.solver} on {opts.num_devices} devices: "
-                                  + NOT_PORTED_GRID)
-    if opts.solver == "async_ams":
-        raise NotImplementedError(f"async_ams on {opts.num_devices} devices: "
-                                  + NOT_PORTED_GRID)
-    if opts.is_async() and opts.grid_parallel and opts.solver != "async_smooth":
-        raise NotImplementedError(
-            f"{opts.solver} on {opts.num_devices} devices with grid parallelism: "
-            + NOT_PORTED_GRID + " (-no_grid_parallel runs it row-sharded)")
-
-
 def _setup_sharded(exp: Experiment, params) -> None:
     """The generic hierarchy of a num_devices > 1 run, as the reference
     builds it: row-sharded over a mesh of num_devices shards
     (`build_dist_hierarchy` with opts.comm), except where a branch replaces
-    it -- one-level async smoothing keeps the replicated hierarchy and puts
-    its own halo operator on the mesh (`solve_experiment`), and the
-    extended system without grid parallelism runs replicated, as the
-    reference runs it (said on stdout)."""
+    it. With grid parallelism (the extended system, the async additive
+    solvers, async AMS) the hierarchy stays replicated and `exp.grid_mesh`
+    carries the mesh the solver lays its levels on; one-level async
+    smoothing keeps the replicated hierarchy and puts its own halo operator
+    on the mesh (`solve_experiment`); the extended system without grid
+    parallelism runs replicated, as the reference runs it (said on
+    stdout)."""
     from amg_tpu_torch.parallel.dist import build_dist_hierarchy, make_row_mesh
     from amg_tpu_torch.setup.hierarchy import build_host_hierarchy, device_hierarchy
 
@@ -417,11 +403,14 @@ def _setup_sharded(exp: Experiment, params) -> None:
                                          B=getattr(prob, "near_nullspace", None))
     else:
         exp.hh = build_host_hierarchy(prob.A, params)
-    if opts.solver in EXT_SOLVERS or (opts.solver == "async_smooth" and opts.grid_parallel):
-        if opts.solver in EXT_SOLVERS:
-            print(f"note: {opts.solver} with -no_grid_parallel runs replicated on "
-                  f"{device} (the extended system's only distribution is the grid "
-                  "layout, ROADMAP queue 1 item 11b)")
+    if opts.grid_parallel and (opts.solver in EXT_SOLVERS or opts.is_async()):
+        exp.hier = device_hierarchy(exp.hh, params, device=device)
+        if opts.solver != "async_smooth":
+            exp.grid_mesh = make_row_mesh(opts.num_devices, device)
+        return
+    if opts.solver in EXT_SOLVERS:
+        print(f"note: {opts.solver} with -no_grid_parallel runs replicated on "
+              f"{device} (the extended system's only distribution is the grid layout)")
         exp.hier = device_hierarchy(exp.hh, params, device=device)
         return
     exp.mesh = make_row_mesh(opts.num_devices, device)
@@ -471,7 +460,7 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
     exp can be solved again. `draws` replaces the draw source of the async
     solver that runs (None: the port's generators seeded from
     opts.seed)."""
-    opts, device, prob, hier = exp.opts, exp.device, exp.prob, exp.hier
+    opts, device, prob, hier, grid_mesh = exp.opts, exp.device, exp.prob, exp.hier, exp.grid_mesh
     if exp.done:
         return exp.stats
     stats = replace(exp.stats)  # each solve of exp reports its own
@@ -536,9 +525,19 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
                 ext_solve,
             )
 
-            ext = build_extended_system(
-                exp.hh, params, explicit="explicit" in opts.solver, device=device
-            )
+            if grid_mesh is not None:
+                from amg_tpu_torch.solve.extended import build_sharded_extended_system
+
+                # the grid-mapped extended system: explicit AA, its block
+                # rows on the work model's shards
+                ext = build_sharded_extended_system(
+                    exp.hh, params, grid_mesh, imbalance=opts.imbal,
+                    assign_policy=opts.assign_procs, assign_scalar=opts.assign_procs_scalar,
+                )
+            else:
+                ext = build_extended_system(
+                    exp.hh, params, explicit="explicit" in opts.solver, device=device
+                )
             coeffs = estimate_cycle_eigs(
                 lambda op, u: op[0].inv_wdiag * ext_matvec(op[0], op[1], u),
                 ext.offsets[-1], dtype,
@@ -557,17 +556,30 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
             # groups of the Maxwell edge system
             if not (prob.aux and "G" in prob.aux):
                 raise ValueError("async_ams needs a problem with aux['G']")
-            from amg_tpu_torch.solve.ams import ams_async_additive_solve, build_ams
+            from amg_tpu_torch.solve.ams import (
+                ams_async_additive_solve,
+                ams_grid_parallel_solve,
+                build_ams,
+            )
 
             ams_data, _ = build_ams(
                 prob.A, prob.aux["G"], params=None, Pi=prob.aux.get("Pi"),
                 device=device,
             )
-            res = ams_async_additive_solve(
-                hier.levels[0].A, ams_data, b, draws=draws, seed=opts.seed,
-                fire_prob=opts.fire_prob, sim_read_delay=opts.sim_read_delay,
-                tol=opts.tol, max_cycles=opts.num_cycles, device=device,
-            )
+            if grid_mesh is not None:
+                # the groups on the work model's shards, owned operator
+                # storage, one correction sum a superstep
+                res, _ = ams_grid_parallel_solve(
+                    hier.levels[0].A, ams_data, grid_mesh, b, draws=draws, seed=opts.seed,
+                    fire_prob=opts.fire_prob, sim_read_delay=opts.sim_read_delay,
+                    tol=opts.tol, max_cycles=opts.num_cycles,
+                )
+            else:
+                res = ams_async_additive_solve(
+                    hier.levels[0].A, ams_data, b, draws=draws, seed=opts.seed,
+                    fire_prob=opts.fire_prob, sim_read_delay=opts.sim_read_delay,
+                    tol=opts.tol, max_cycles=opts.num_cycles, device=device,
+                )
         elif opts.is_async():
             from amg_tpu_torch.solve.async_sim import AsyncConfig, async_solve
 
@@ -588,13 +600,29 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
                 fire_prob=opts.fire_prob,
                 sim_grid_wait=opts.sim_grid_wait,
                 comm_every=max(opts.async_comm_save_divisor, 1),
+                converge_test_type=opts.converge_test_type,
                 **resolve_delays(opts, stats.num_levels),
                 **accel_kw,
             )
-            res = async_solve(
-                hier, cfg, acfg, b, x0, draws=draws, seed=opts.seed,
-                tol=opts.tol, max_cycles=opts.num_cycles, device=device,
-            )
+            if grid_mesh is not None:
+                # level -> shard-group parallelism (the structured
+                # multi-device path row-shards and takes async_solve)
+                from amg_tpu_torch.parallel.grid import grid_parallel_solve, plan_grid_levels
+
+                _, levels_of, lscale = plan_grid_levels(
+                    exp.hh, opts.num_devices, imbalance=opts.imbal,
+                    smoothed_transfers=cfg.use_smoothed_transfers,
+                    assign_policy=opts.assign_procs, assign_scalar=opts.assign_procs_scalar,
+                )
+                res = grid_parallel_solve(
+                    hier, cfg, acfg, levels_of, lscale, grid_mesh, b, x0, draws=draws,
+                    seed=opts.seed, tol=opts.tol, max_cycles=opts.num_cycles,
+                )
+            else:
+                res = async_solve(
+                    hier, cfg, acfg, b, x0, draws=draws, seed=opts.seed,
+                    tol=opts.tol, max_cycles=opts.num_cycles, device=device,
+                )
             gw = res.grid_wait.summary()
         elif takes_struct_solve(opts, smoother, device, hier.levels[0].A):
             # the fused structured path on the card (K1-K4)

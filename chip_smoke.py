@@ -184,7 +184,26 @@ Phases (any failure exits non-zero and prints no result line):
      AMS-PCG row-sharded (build_sharded_ams / solve_sharded_ams_pcg, G and
      Pi) on maxwell_curlcurl(40), 182,520 edges, phase 15's b: the
      single-device 124 iterations +-1, a true residual <= 1e-8, host and
-     device ms an iteration; (d) dryrun_multichip(8) inside its gates.
+     device ms an iteration;
+ 19. grid (level) parallelism on the same mesh (`parallel.grid`), every
+     kernel counter 0 again: (a) goldens config6 and config12 through
+     run_experiment(num_devices=8) on the port's generators: level_n and
+     level_nnz, steps within +-25% of the golden's; (b) phase 11's 96^3
+     FULL async_multadd over the work model's level groups of 8 shards
+     (plan_grid_levels, grid_parallel_solve, owned storage) under the same
+     GeneratorDraws(0): phase 11's step count (+-1 only where its history
+     ends within 1e-12 of tol), x within 1e-9; host ms, device ms, events
+     and idle a step; each shard's device time for one step's corrections
+     beside the work model's share; (c) the grid-mapped extended system
+     (explicit_ext_bpx, its AA a HaloELL over the shards) on the 27-point
+     30^3 problem, the largest whose explicit AA fits the card, through the
+     runner: rel_res <= 1e-8, its halo bytes a step, the device peak;
+     (d) the async AMS groups on maxwell_curlcurl(40) for 100 steps
+     against the single-device async AMS under the same draws: x within
+     1e-9, the owned bytes a shard (the work model puts every group on
+     one shard there), and the same at n = 6, where each group has a shard
+     of its own; (e)
+     dryrun_multichip(8) inside its gates, its row and grid parts. A {"grid": ...} line records it.
 The last two lines are the `kernels` JSON object (K1 on both of its
 kernels, K2-K5, K5's bf16-plane sweep) and
 {"ok": true, "device": {...}}.
@@ -1747,11 +1766,13 @@ def async_timing(hier, cfg, acfg, b, device, k0=10, k1=30):
             "samples_s": [s0, s1], "rows": [(ms, nev, name[:100]) for ms, nev, name in rows[:8]]}
 
 
-def additive_phase_96(prob, hh, hier64, hier32, b_np, ref, device):
+def additive_phase_96(prob, hh, hier64, hier32, b_np, ref, device, keep=None):
     """The additive and async solvers on the generic phase's 96^3
     hierarchy: sync MULTADD under Chebyshev at the reference's count and
     history, async_multadd FULL Richardson on the port's own generators in
-    the reference's corridor; their timings. Returns (record, failures)."""
+    the reference's corridor; their timings. Returns (record, failures);
+    puts the float64 hierarchy, the async run's cfg / acfg, steps, x and
+    per-step times into `keep` (phase 19's single-device baseline)."""
     import torch
 
     from amg_tpu_torch.solve.async_sim import AsyncConfig, async_solve
@@ -1844,6 +1865,9 @@ def additive_phase_96(prob, hh, hier64, hier32, b_np, ref, device):
                          "peak_bytes": peak, "counts": counts}
     if not (float(ares.rel_resnorm) <= 1e-8 and true_rel <= 1.1e-8 and lo <= ares.iters <= hi):
         fails.append("96^3 async_multadd FULL: not converged within the reference's corridor")
+    if keep is not None:
+        keep.update(hier64=hier64, async_cfg=cfg, async_acfg=acfg, async_iters=ares.iters,
+                    async_x=ares.x.cpu().numpy(), async_history=ares.history_list())
 
     for dn, hier, b in (("float64", hier64, b64), ("float32", hier32, b64.float())):
         t = async_timing(hier, cfg, acfg, b, device)
@@ -1853,6 +1877,9 @@ def additive_phase_96(prob, hh, hier64, hier32, b_np, ref, device):
         for ms, nev, name in t["rows"]:
             log(f"    {ms:.4f} ms  {nev:7.1f} launches  {name}")
         rec[f"async step {dn}"] = t
+        if keep is not None and dn == "float64":
+            keep.update(async_host_ms=t["host_ms_per_step"],
+                        async_device_ms=t["device_busy_ms_per_step"])
     return rec, fails
 
 
@@ -2098,7 +2125,8 @@ def generic_phase(device, keep):
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), ASYNC_REF)) as f:
         aref = json.load(f)
     log("additive and async solvers:")
-    rec["additive 96"], f96 = additive_phase_96(prob, hh, hier64, hier32, b_np, aref, device)
+    rec["additive 96"], f96 = additive_phase_96(prob, hh, hier64, hier32, b_np, aref, device,
+                                                keep)
     fails += f96
 
     rng = np.random.default_rng(SEED + 9)
@@ -2402,7 +2430,6 @@ def multidevice_phase(device, keep, ams_ref):
     from amg_tpu_torch.solve.cycles import CycleConfig, mult_vcycle
     from amg_tpu_torch.solve.driver import solve
     from amg_tpu_torch.utils.config import SolverOptions
-    from amg_tpu_torch.utils.dryrun import dryrun_multichip
     from amg_tpu_torch.utils.runner import run_experiment
 
     t_phase = time.perf_counter()
@@ -2499,7 +2526,6 @@ def multidevice_phase(device, keep, ams_ref):
         del hier
         torch.cuda.empty_cache()
         log(f"  (b) {comm}: {time.perf_counter() - t_phase:.1f} s into the phase")
-    del keep["hh"]
 
     # (c) AMS-PCG row-sharded at n = 40
     pm = maxwell_curlcurl(MAXWELL_N)
@@ -2532,8 +2558,253 @@ def multidevice_phase(device, keep, ams_ref):
                                       max_iters=200), mres.iters)))
     del A_h, ams
     log(f"  (c) {time.perf_counter() - t_phase:.1f} s into the phase")
+    # (d) the dry run, row and grid parts, runs in phase 19 (e)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"multi-device phase: {rec['phase_s']:.1f} s")
+    return rec, fails
 
-    # (d) the dry run
+
+# phase 19: grid (level) parallelism on the same mesh (parallel.grid)
+GRID_GOLDENS = ("config6_grid_async_multadd", "config12_maxwell_async_ams_grid")
+# the grid-mapped extended system at 27pt 30^3, the largest side whose
+# explicit AA fits the card: 1.88G ELL slots, 12 B each held and 16 B more
+# in a matvec's gather and product, 53 GB (31^3: 2.62G slots, 73 GB)
+GRID_EXT_N = 30
+GRID_AMS_STEPS = 100
+GRID_AMS_SPLIT_N = 6  # maxwell_curlcurl(6): one AMS group a shard
+
+
+def grid_phase(device, keep):
+    """Phase 19 on `device`: `keep` holds phase 10's 96^3 host hierarchy,
+    b, and phase 11's float64 hierarchy, async cfg / acfg, steps, x and
+    per-step times. Returns (record, failures)."""
+    import torch
+
+    from amg_tpu_torch.convert import matrix_from_arrays
+    from amg_tpu_torch.parallel import comm_trace, make_row_mesh
+    from amg_tpu_torch.parallel.grid import (
+        build_grid_owned_storage,
+        device_branch_fn,
+        grid_parallel_solve,
+        plan_grid_levels,
+    )
+    from amg_tpu_torch.parallel.partition import compute_level_work
+    from amg_tpu_torch.problems.maxwell import maxwell_curlcurl
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, _format_converter
+    from amg_tpu_torch.solve.ams import (
+        ams_async_additive_solve,
+        ams_grid_parallel_solve,
+        async_ams_eigs,
+        build_ams,
+        plan_ams_groups,
+    )
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.dryrun import dryrun_multichip
+    from amg_tpu_torch.utils.runner import setup_experiment, solve_experiment
+
+    t_phase = time.perf_counter()
+    fails, rec = [], {"goldens": {}}
+
+    def no_kernel(label, counts):
+        if any(counts.values()):
+            fails.append(f"{label}: a kernel was launched on the grid path {counts}")
+
+    # (a) the grid goldens through the runner, on the port's generators
+    for name in GRID_GOLDENS:
+        g = load_json(f"tests/golden/{name}.json")
+        opts = SolverOptions(**g["config"])
+        lo, hi = math.floor(0.75 * g["cycles"]), math.ceil(1.25 * g["cycles"])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        exp = setup_experiment(opts, device)
+        t1 = time.perf_counter()
+        st = solve_experiment(exp)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts()
+        log(f"golden {name} ({opts.solver}, num_devices {opts.num_devices}, grid parallel): "
+            f"level_n {st.level_n}, steps {st.cycles} (golden {g['cycles']} with the reference's "
+            f"draws; corridor {lo}-{hi}), rel_res {st.rel_resnorm:.4e}; setup {t1 - t0:.2f} s, "
+            f"solve {t2 - t1:.3f} s ({(t2 - t1) / max(st.cycles, 1) * 1e3:.3f} ms a step); "
+            f"launches {counts}")
+        rec["goldens"][name] = {"cycles": st.cycles, "rel_res": st.rel_resnorm,
+                                "setup_s": t1 - t0, "solve_s": t2 - t1}
+        if st.level_n != g["level_n"] or st.level_nnz != g["level_nnz"] \
+                or not lo <= st.cycles <= hi or not st.rel_resnorm <= opts.tol:
+            fails.append(f"golden {name}: not the golden's shapes, or not converged in its corridor")
+        no_kernel(name, counts)
+        del exp
+    log(f"  (a) {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) phase 11's 96^3 FULL async_multadd over 8 shards' level groups
+    hh, hier, b_np = keep["hh"], keep["hier64"], keep["b"]
+    cfg, acfg = keep["async_cfg"], keep["async_acfg"]
+    want_iters, x1 = keep["async_iters"], keep["async_x"]
+    b64 = torch.from_numpy(b_np).to(device)
+    mesh = make_row_mesh(MULTI_D, device)
+    _, levels_of, scale = plan_grid_levels(hh, MULTI_D,
+                                           smoothed_transfers=cfg.use_smoothed_transfers)
+    storage = build_grid_owned_storage(hier, levels_of, cfg, mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = grid_parallel_solve(hier, cfg, acfg, levels_of, scale, mesh, b64, seed=0, tol=1e-8,
+                              max_cycles=1000)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    x = res.x.cpu().numpy()
+    dx = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
+    true_rel = true_rel_residual(keep["prob"], x, b_np)
+    # a step count may move by one only where the single-device history ends
+    # within 1e-12 of tol (a roundoff-sized change then crosses it)
+    slack = 1 if abs(keep["async_history"][-1] - 1e-8) <= 1e-12 else 0
+    log(f"{GENERIC_N}^3 FULL async_multadd over {MULTI_D} shards' level groups {levels_of} "
+        f"(scale {[round(float(v), 3) for v in scale]}): steps {res.iters} (one device {want_iters}), "
+        f"rel_res {float(res.rel_resnorm):.4e}, true rel_res {true_rel:.4e}, |x - x_1|/|x_1| "
+        f"{dx:.3e}, {solve_s:.3f} s; owned bytes a shard {list(storage.owned_bytes)}; "
+        f"launches {counts}")
+    r = {"levels_of": [list(ls) for ls in levels_of], "iters": res.iters, "dx": dx,
+         "true_rel_res": true_rel, "solve_s": solve_s, "owned_bytes": list(storage.owned_bytes),
+         "grid_wait": res.grid_wait.summary()}
+    if abs(res.iters - want_iters) > slack or dx > 1e-9 or not float(res.rel_resnorm) <= 1e-8:
+        fails.append(f"{GENERIC_N}^3 grid FULL: not the single-device steps or x")
+    no_kernel(f"{GENERIC_N}^3 grid", counts)
+
+    def solve_k(k):
+        return grid_parallel_solve(hier, cfg, acfg, levels_of, scale, mesh, b64, seed=0,
+                                   tol=0.0, max_cycles=k)
+
+    def run(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve_k(k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    host_ms, _, _ = host_slope_ms(run, 10, 30)
+    busy, events, rows = device_per_cycle(solve_k, 10, 20)
+    idle = 1.0 - busy / host_ms if host_ms > 0 else None
+    log(f"  a grid step: host clock {host_ms:.4f} ms, device busy {busy:.4f} ms in {events:.1f} "
+        f"events, idle share {'not measured' if idle is None else f'{idle:.3f}'} (one device, "
+        f"phase 11: {keep['async_device_ms']:.4f} ms device, {keep['async_host_ms']:.4f} ms host)")
+    for ms, nev, name in rows[:8]:
+        log(f"    {ms:.4f} ms  {nev:7.1f} launches  {name[:100]}")
+    r.update(host_ms_per_step=host_ms, device_busy_ms_per_step=busy, events_per_step=events,
+             idle_share=idle)
+    # each shard's correction work in one step (every level fires, FULL reads
+    # from a ring of the solve's iterates) beside the work model's share
+    work = compute_level_work(hh, smoothed_transfers=cfg.use_smoothed_transfers)
+    W = acfg.sim_read_delay + 1
+    ring = torch.stack([res.x * (1.0 - 0.1 * i) for i in range(W)])
+    gen = torch.Generator(device=device).manual_seed(0)
+    cols = [torch.randint(0, W, (b64.shape[0],), generator=gen, device=device, dtype=torch.int32)
+            for _ in range(hier.num_levels)]
+    shard_ms = []
+    for d in range(MULTI_D):
+        fn = device_branch_fn(storage.views[d], cfg, acfg, levels_of[d], b64)
+        fn(ring, cols)
+        ms, _, _ = profile_device_ms(lambda: fn(ring, cols))
+        shard_ms.append(ms)
+    model = [float(sum(work[k] for k in ls)) for ls in levels_of]
+    tot_ms, tot_w = max(sum(shard_ms), 1e-12), sum(model)
+    log("  one step's correction work a shard (every level firing): device ms "
+        f"{[round(v, 4) for v in shard_ms]}; share {[round(v / tot_ms, 3) for v in shard_ms]} "
+        f"against the work model's {[round(v / tot_w, 3) for v in model]}")
+    r.update(shard_device_ms=shard_ms, shard_model_work=model)
+    rec["96 full"] = r
+    del storage, hier, ring
+    for key in ("hier64", "hh", "async_x"):
+        keep.pop(key, None)
+    torch.cuda.empty_cache()
+    log(f"  (b) {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (c) the grid-mapped extended system (HaloELL AA) through the runner
+    opts = SolverOptions(problem="27pt", n=GRID_EXT_N, solver="explicit_ext_bpx",
+                         num_devices=MULTI_D, tol=1e-8)
+    t0 = time.perf_counter()
+    held_gb = torch.cuda.memory_allocated(device) / 1e9
+    exp = setup_experiment(opts, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t1 = time.perf_counter()
+    with comm_trace(exp.grid_mesh) as trace:
+        st = solve_experiment(exp)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    per_matvec = sum(trace) / max(len(trace), 1)
+    log(f"grid-mapped extended system, 27pt {GRID_EXT_N}^3 ({st.level_n}), explicit_ext_bpx on "
+        f"{MULTI_D} shards: steps {st.cycles}, rel_res {st.rel_resnorm:.4e}; setup {t1 - t0:.2f} "
+        f"s, solve {t2 - t1:.3f} s (the system's build and eigenvalue estimate included); "
+        f"{len(trace)} AA matvecs, {per_matvec:.0f} halo bytes a shard each (one a step); "
+        f"device peak {peak_gb:.2f} GB ({held_gb:.2f} GB held before the setup); "
+        f"launches {counts}")
+    rec["ext"] = {"n": GRID_EXT_N, "cycles": st.cycles, "rel_res": st.rel_resnorm,
+                  "setup_s": t1 - t0, "solve_s": t2 - t1, "aa_matvecs": len(trace),
+                  "halo_bytes_per_step": per_matvec, "device_peak_gb": peak_gb,
+                  "held_before_gb": held_gb}
+    if not st.rel_resnorm <= 1e-8:
+        fails.append("grid-mapped extended system: rel_res > 1e-8")
+    no_kernel("grid-mapped extended system", counts)
+    del exp
+    torch.cuda.empty_cache()
+    log(f"  (c) {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (d) the async AMS groups against the single-device async AMS: at
+    # n = 40 the work model puts all 14 groups on one shard (ROADMAP F13),
+    # at n = 6 each of its 6 groups on its own
+    for n_mx, key in ((MAXWELL_N, "ams"), (GRID_AMS_SPLIT_N, "ams split")):
+        pm = maxwell_curlcurl(n_mx)
+        t0 = time.perf_counter()
+        ams, _ = build_ams(pm.A, pm.aux["G"], Pi=pm.aux["Pi"], device=device)
+        A = matrix_from_arrays(_format_converter(HierarchyParams())(pm.A), torch.float64, device)
+        coeffs = async_ams_eigs(A, ams)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        bm_np = np.random.default_rng(0).random(pm.n)  # phase 15's b
+        bm = torch.from_numpy(bm_np).to(device)
+        runs = {}
+        for label in ("one device", "grid"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            if label == "grid":
+                out, owned = ams_grid_parallel_solve(A, ams, mesh, bm, seed=0, tol=0.0,
+                                                     max_cycles=GRID_AMS_STEPS,
+                                                     cheby_coeffs=coeffs)
+            else:
+                out = ams_async_additive_solve(A, ams, bm, seed=0, tol=0.0,
+                                               max_cycles=GRID_AMS_STEPS, cheby_coeffs=coeffs,
+                                               device=device)
+            torch.cuda.synchronize()
+            runs[label] = (out, time.perf_counter() - t0, read_counts())
+        (one, s1, _), (grid, s2, counts) = runs["one device"], runs["grid"]
+        dxa = float(torch.linalg.norm(grid.x - one.x) / torch.linalg.norm(one.x))
+        groups_of, _ = plan_ams_groups(ams, MULTI_D)
+        log(f"async AMS groups, maxwell_curlcurl({n_mx}) ({pm.n} edges), {GRID_AMS_STEPS} "
+            f"steps on the port's draws (seed 0): rel_res {float(grid.rel_resnorm):.4e} (one "
+            f"device {float(one.rel_resnorm):.4e}), |x - x_1|/|x_1| {dxa:.3e}; "
+            f"{s2 / GRID_AMS_STEPS * 1e3:.3f} ms a step (one device "
+            f"{s1 / GRID_AMS_STEPS * 1e3:.3f}); setup {setup_s:.2f} s; groups "
+            f"{[list(g) for g in groups_of]}, owned bytes a shard {owned}; launches {counts}")
+        rec[key] = {"n": n_mx, "steps": grid.iters, "rel_res": float(grid.rel_resnorm),
+                    "dx": dxa, "ms_per_step": s2 / GRID_AMS_STEPS * 1e3,
+                    "one_device_ms_per_step": s1 / GRID_AMS_STEPS * 1e3, "owned_bytes": owned,
+                    "groups_of": [list(g) for g in groups_of]}
+        if grid.iters != GRID_AMS_STEPS or one.iters != GRID_AMS_STEPS or dxa > 1e-9:
+            fails.append(f"async AMS groups n = {n_mx}: not the single-device solve's steps or x")
+        if n_mx == GRID_AMS_SPLIT_N and sum(1 for g in groups_of if g) < 2:
+            fails.append(f"async AMS groups n = {n_mx}: the groups are not split")
+        no_kernel(f"async AMS groups n = {n_mx}", counts)
+        del ams, A
+        torch.cuda.empty_cache()
+    log(f"  (d) {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (e) the dry run, its row and grid parts
     t0 = time.perf_counter()
     try:
         rec["dryrun"] = dryrun_multichip(MULTI_D, device)
@@ -2541,7 +2812,7 @@ def multidevice_phase(device, keep, ams_ref):
         fails.append(f"dryrun_multichip: {e}")
     rec["dryrun_s"] = time.perf_counter() - t0
     rec["phase_s"] = time.perf_counter() - t_phase
-    log(f"multi-device phase: {rec['phase_s']:.1f} s (the dry run {rec['dryrun_s']:.1f} s)")
+    log(f"grid phase: {rec['phase_s']:.1f} s (the dry run {rec['dryrun_s']:.1f} s)")
     return rec, fails
 
 
@@ -2695,7 +2966,7 @@ def main() -> int:
         log("AMS path FAILED:", fams)
         return 1
     log("generic AMG path:")
-    keep = {}  # phase 10's 96^3 host hierarchy and solve, for phase 18
+    keep = {}  # phase 10's 96^3 host hierarchy and solves, for phases 18 and 19
     gen, fgen = generic_phase(device, keep)
     if fgen:
         log("generic AMG path FAILED:", fgen)
@@ -2709,6 +2980,11 @@ def main() -> int:
     multi, fmulti = multidevice_phase(device, keep, eref["ams"])
     if fmulti:
         log("multi-device phase FAILED:", fmulti)
+        return 1
+    log("grid (level) parallelism (8 shards' level groups on one card):")
+    grid, fgrid = grid_phase(device, keep)
+    if fgrid:
+        log("grid phase FAILED:", fgrid)
         return 1
 
     cycle = cycle_phase(hier32, cfg, b32, device)
@@ -2775,6 +3051,7 @@ def main() -> int:
     log(json.dumps({"generic": gen}))
     log(json.dumps({"drivers": drv}))
     log(json.dumps({"multidevice": multi}))
+    log(json.dumps({"grid": grid}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -249,12 +249,13 @@ def test_driver_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("opts,err,match", [
-    # the row-sharded path runs (test_torch_parallel.py); the extended
-    # system over a mesh is the grid slice's
-    ({"num_devices": 2, "solver": "implicit_ext_bpx"}, NotImplementedError, "item 11b"),
-    ({"num_devices": 8, "solver": "async_multadd"}, NotImplementedError, "item 11b"),
+    # every multi-device branch runs (test_torch_parallel.py, test_torch_grid.py);
+    # the grid solve refuses what the reference's asserts against: coalesced
+    # publishes of stale residual reads
+    ({"num_devices": 8, "solver": "async_multadd", "async_comm_save_divisor": 2,
+      "read_type": "res"}, ValueError, "comm_every"),
     ({"device_format": "bsr"}, ValueError, "Not ported"),
-], ids=["rows", "grid", "bsr"])
+], ids=["grid", "bsr"])
 def test_the_runner_refuses_what_is_not_ported(opts, err, match):
     from amg_tpu_torch.utils.config import SolverOptions
     from amg_tpu_torch.utils.runner import run_experiment
@@ -311,8 +312,10 @@ def test_the_parallel_modules_load_no_jax():
     code = (
         "import sys\n"
         "import amg_tpu_torch.parallel, amg_tpu_torch.utils.dryrun\n"
-        "from amg_tpu_torch.parallel import dist, halo, multihost, spcomm\n"
+        "from amg_tpu_torch.parallel import dist, grid, halo, multihost, partition, spcomm\n"
         "from amg_tpu_torch.solve.ams import build_sharded_ams, solve_sharded_ams_pcg\n"
+        "from amg_tpu_torch.solve.ams import ams_grid_parallel_solve, plan_ams_groups\n"
+        "from amg_tpu_torch.solve.extended import build_sharded_extended_system\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'amg_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -365,9 +368,9 @@ def test_init_multihost_picks_nccl_for_cuda_and_gloo_for_the_cpu():
 
 
 def test_the_one_process_routes_raise_across_processes():
-    """comm="gspmd", the sharded structured hierarchy and the block
-    smoothers have no route across processes (ROADMAP item 11c); the halo
-    route does."""
+    """comm="gspmd", the sharded structured hierarchy, the block smoothers
+    and the grid-mapped extended system have no route across processes
+    (ROADMAP item 11c); the halo route does."""
     from amg_tpu_torch.parallel.dist import RowMesh, build_dist_hierarchy, \
         shard_structured_hierarchy
     from amg_tpu_torch.problems.laplacian import laplacian_2d_5pt
@@ -394,23 +397,7 @@ def test_the_one_process_routes_raise_across_processes():
     assert hier_h.levels[0].sm.scale.shape == (info[1] // 2,)
     with pytest.raises(ValueError, match="unknown comm"):
         build_dist_hierarchy(hh, params, mesh, comm="mpi")
+    from amg_tpu_torch.solve.extended import build_sharded_extended_system
 
-
-@pytest.mark.parametrize("name", ["config6_grid_async_multadd",
-                                  "config12_maxwell_async_ams_grid"])
-def test_the_grid_goldens_raise_with_the_grid_slice(name):
-    """The multi-device goldens of the grid half raise NotImplementedError
-    naming ROADMAP item 11b; nothing falls back to one device."""
-    import json
-
-    from amg_tpu_torch.utils.config import SolverOptions
-    from amg_tpu_torch.utils.runner import run_experiment
-
-    with open(ROOT / "tests" / "golden" / f"{name}.json") as f:
-        cfg = json.load(f)["config"]
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        run_experiment(SolverOptions(**cfg), device="cpu")
-    for solver in ("explicit_ext_bpx", "async_ams", "async_bpx"):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            run_experiment(SolverOptions(problem="5pt", n=8, num_devices=8, solver=solver),
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        build_sharded_extended_system(hh, params, mesh)

@@ -6,8 +6,11 @@ each exchange mode of the halo operators and the halo stencil, and the
 sharded AMS-PCG; the exchange and the coarse solve move values without
 arithmetic, so the 2-process V-cycle run equals the 1-process one to 1e-14
 (its norms are all-reduced in another order), and the PCG, whose dots are
-all-reduced too, to 1e-10. Spawns real processes: the collectives cross
-process memory."""
+all-reduced too, to 1e-10. The grid-parallel async solves gather the
+shards' partials and sum them in shard order in every process, so 2
+processes x 4 shards equal 1 x 8 bit for bit. Spawns real processes (one
+round of each, shared by the tests): the collectives cross process
+memory."""
 
 import json
 import os
@@ -16,6 +19,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_mp_worker.py")
@@ -62,9 +66,14 @@ def _results(nproc: int):
     return sorted(results, key=lambda r: r["pid"])
 
 
-def test_two_processes_equal_one():
+@pytest.fixture(scope="module")
+def rounds():
     (one,) = _results(1)
-    two = _results(2)
+    return one, _results(2)
+
+
+def test_two_processes_equal_one(rounds):
+    one, two = rounds
     with open(os.path.join(REPO, "tests", "golden", "config7_halo_dist_mult.json")) as f:
         g = json.load(f)
     assert one["cycles"] == g["cycles"] and one["level_n"] == g["level_n"]
@@ -79,3 +88,14 @@ def test_two_processes_equal_one():
         assert r["ams_iters"] == one["ams_iters"]
         np.testing.assert_allclose(r["ams_x"], one["ams_x"], rtol=0,
                                    atol=1e-10 * np.abs(one["ams_x"]).max())
+
+
+def test_the_grid_solve_on_two_processes_equals_one(rounds):
+    one, two = rounds
+    assert one["grid"]["views"] == list(range(8))
+    assert [r["grid"]["views"] for r in two] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    for name in ("semi", "full coalesced local"):
+        want = one["grid"][name]
+        assert want["history"][-1] <= 2e-8
+        for r in two:
+            assert r["grid"][name] == want, name

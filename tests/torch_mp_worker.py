@@ -10,7 +10,11 @@ the process boundary:
   2. the exchange modes one by one on config7's padded matrix: HaloELL in
      ppermute and all_to_all mode and HaloBSR, and the halo stencil's plane
      exchange on the 7-point 16^3 grid;
-  3. the sharded AMS-PCG on the Maxwell n = 6 mesh (all-reduced dots).
+  3. the sharded AMS-PCG on the Maxwell n = 6 mesh (all-reduced dots);
+  4. the grid-parallel async solve of the 5-point 16^2 problem over the 8
+     shards' level groups (the correction sum and the fused norm pairs
+     all-gathered): SEMI, and FULL with comm_every 2 and local convergence
+     (each shard's own pending corrections and residual view).
 
 Prints one "RESULT <json>" line (global vectors gathered); the parent test
 compares it with the one-process run.
@@ -69,10 +73,37 @@ def main():
     A_h, ams, cfg, pad_e, _ = build_sharded_ams(pmx.A, pmx.aux["G"], mesh, Pi=pmx.aux["Pi"])
     mres = solve_sharded_ams_pcg(A_h, ams, cfg, torch.from_numpy(np.asarray(pmx.rhs)), mesh,
                                  pad_e, tol=1e-8)
+    from amg_tpu_torch.parallel.grid import (
+        build_grid_owned_storage,
+        grid_parallel_solve,
+        plan_grid_levels,
+    )
+    from amg_tpu_torch.problems import laplacian_2d_5pt
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.solve.async_sim import AsyncConfig
+    from amg_tpu_torch.solve.cycles import CycleConfig, CycleType
+
+    p5 = laplacian_2d_5pt(16)
+    hh, hier = build_hierarchy(p5.A, HierarchyParams(smoother=SmootherType.L1_JACOBI,
+                                                     keep_stencil_fine=False), device="cpu")
+    cfg = CycleConfig(cycle=CycleType.MULTADD, smoother=SmootherType.L1_JACOBI,
+                      use_smoothed_transfers=True)
+    _, levels_of, scale = plan_grid_levels(hh, 8)
+    b5 = torch.from_numpy(np.random.default_rng(0).random(p5.n))
+    grid = {"views": sorted(build_grid_owned_storage(hier, levels_of, cfg, mesh).views)}
+    for name, kw in (("semi", {"async_type": "semi"}),
+                     ("full coalesced local", {"async_type": "full", "comm_every": 2,
+                                               "converge_test_type": "local"})):
+        acfg = AsyncConfig(omega=0.7, fire_prob=0.8, sim_read_delay=1, **kw)
+        g = grid_parallel_solve(hier, cfg, acfg, levels_of, scale, mesh, b5, seed=0, tol=1e-8,
+                                max_cycles=300)
+        grid[name] = {"iters": g.iters, "history": g.history_list(), "x": g.x.tolist(),
+                      "count": g.grid_wait.count.tolist()}
     print("RESULT " + json.dumps({
         "pid": pid, "cycles": st.cycles, "history": st.history, "x": st.x.tolist(),
         "level_n": st.level_n, "y": ys,
-        "ams_iters": int(mres.iters), "ams_x": mres.x.tolist(),
+        "ams_iters": int(mres.iters), "ams_x": mres.x.tolist(), "grid": grid,
     }), flush=True)
     torch.distributed.destroy_process_group()
 
