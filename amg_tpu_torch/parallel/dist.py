@@ -17,15 +17,20 @@ so that the cycles, smoothers and solvers run on it unchanged:
     and dots and norms are the plain ones;
   * several processes (`parallel.multihost.init_multihost`): the halo
     exchange crosses processes through the process group (NCCL between
-    cards, gloo between CPU processes), dots and norms are all-reduced and
-    the replicated coarse inverse applies to the all-gathered coarse vector
-    (`ReplicatedInverse`).
+    cards, gloo between CPU processes or, host-staged, between processes
+    that share a card), dots and norms are all-reduced and the replicated
+    coarse inverse applies to the all-gathered coarse vector
+    (`GatheredOperator`). Every collective is a `RowMesh` method.
 
 comm="gspmd" (the reference lets XLA insert collectives into plain sharded
 ELL/BSR operators) is, in one process, the padded single-device computation,
-which is what GSPMD computes; the structured hierarchy likewise
-(`shard_structured_hierarchy`). Neither is ported across processes: both
-raise under world_size > 1 (ROADMAP queue 1 item 11c).
+which is what GSPMD computes; across processes each operator keeps its rows
+and all-gathers its operand (`RowShardedMatrix`, `row_shard`). The
+structured hierarchy likewise (`shard_structured_hierarchy`): in one
+process the hierarchy itself; across processes the plane halo where a
+level's leading axis splits over the shards, else the gathered form
+(`GatheredOperator`). A block smoother's blocks stay those of the global
+rows (`shard_smoother`).
 
 Grid (level) parallelism lays its levels over the same mesh: whole shards
 per level group (`parallel.grid`), or, for the extended system, each level
@@ -35,25 +40,29 @@ block padded to the shard range of its group (`pad_extended_layout`).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 from amg_tpu_torch.dtypes import resolve_device
 
-# the multi-device routes that run in one process only (ROADMAP item 11c)
-NOT_PORTED_ACROSS_PROCESSES = (
-    "{what} runs in one process only (the padded single-device computation "
-    "that GSPMD computes); across processes it is ROADMAP queue 1 item 11c"
-)
-
-
 @dataclass(eq=False)
 class RowMesh:
     """D logical shards on `device`, spread over the processes of `group`
     (None: one process), D / world_size consecutive shards to each.
-    `trace` is the open `comm_trace` log (None when none is open)."""
+    `trace` is the open `comm_trace` log (None when none is open).
+
+    Every collective of the port goes through the mesh's methods: `gather`
+    (all-gather), `all_reduce`, `all_to_all` and `send_recv` (one batch of
+    point-to-point sends and receives). `staged`: the group's backend cannot
+    take the device's tensors (gloo with processes that share one card), so
+    each collective copies its operands through host buffers; the
+    arithmetic stays on the device. `sent_bytes` counts the bytes this
+    process has handed the backend for other processes (its all-gather part
+    once per peer, an all-reduced tensor once, its all-to-all rows and
+    point-to-point sends to other processes): what crosses processes, where
+    `parallel.spcomm.comm_trace` counts what moves between shards."""
 
     n_devices: int
     device: torch.device
@@ -61,6 +70,8 @@ class RowMesh:
     rank: int = 0
     world_size: int = 1
     trace: Optional[list] = None
+    staged: bool = False
+    sent_bytes: int = 0
 
     @property
     def local_devices(self) -> int:
@@ -92,31 +103,69 @@ class RowMesh:
         x = torch.as_tensor(x)
         return x[self.local_rows(x.shape[0])].to(self.device)
 
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """The buffer a collective hands the backend: t itself (contiguous),
+        or its host copy where the mesh is staged."""
+        return t.detach().to("cpu", copy=True) if self.staged else t.contiguous()
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The global vector of a row-sharded one, in every process."""
+        """The global tensor of a row-sharded one (rows concatenated in rank
+        order), in every process."""
         if self.world_size == 1:
             return x
-        parts = [torch.empty_like(x) for _ in range(self.world_size)]
-        torch.distributed.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts)
+        w = self._wire(x)
+        parts = [torch.empty_like(w) for _ in range(self.world_size)]
+        torch.distributed.all_gather(parts, w, group=self.group)
+        self.sent_bytes += w.numel() * w.element_size() * (self.world_size - 1)
+        return torch.cat(parts).to(x.device)
 
-    def _sum(self, s: torch.Tensor) -> torch.Tensor:
-        torch.distributed.all_reduce(s, group=self.group)
-        return s
+    def all_reduce(self, s: torch.Tensor) -> torch.Tensor:
+        """The sum of `s` over the processes (a new tensor)."""
+        if self.world_size == 1:
+            return s
+        w = self._wire(s) if self.staged else s.clone()
+        torch.distributed.all_reduce(w, group=self.group)
+        self.sent_bytes += w.numel() * w.element_size()
+        return w.to(s.device)
+
+    def all_to_all(self, inp: torch.Tensor) -> torch.Tensor:
+        """inp (world_size, ...) rows by destination process -> the rows each
+        process sent here, by source process."""
+        w = self._wire(inp)
+        out = torch.empty_like(w)
+        torch.distributed.all_to_all_single(out, w, group=self.group)
+        self.sent_bytes += w.numel() * w.element_size() * (self.world_size - 1) \
+            // self.world_size
+        return out.to(inp.device)
+
+    def send_recv(self, sends, recvs) -> None:
+        """One batch of point-to-point transfers: sends [(tensor, rank, tag)]
+        and recvs [(tensor to fill, rank, tag)], ranks in the group. Every
+        process posts its transfers with one peer in the same order."""
+        dist = torch.distributed
+        ops, fill = [], []
+        for t, peer, tag in sends:
+            w = self._wire(t)
+            self.sent_bytes += w.numel() * w.element_size()
+            ops.append(dist.P2POp(dist.isend, w, self.global_rank(peer), self.group, tag))
+        for t, peer, tag in recvs:
+            w = torch.empty(t.shape, dtype=t.dtype) if self.staged else t
+            if self.staged:
+                fill.append((t, w))
+            ops.append(dist.P2POp(dist.irecv, w, self.global_rank(peer), self.group, tag))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for t, w in fill:
+            t.copy_(w)
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.world_size == 1:
-            return torch.dot(a, b)
-        return self._sum(torch.dot(a, b))
+        return self.all_reduce(torch.dot(a, b))
 
     def norm(self, x: torch.Tensor) -> torch.Tensor:
         if self.world_size == 1:
             return torch.linalg.norm(x)
-        return torch.sqrt(self._sum(torch.dot(x, x)))
-
-    def require_one_process(self, what: str) -> None:
-        if self.world_size > 1:
-            raise NotImplementedError(NOT_PORTED_ACROSS_PROCESSES.format(what=what))
+        return torch.sqrt(self.all_reduce(torch.dot(x, x)))
 
 
 def make_row_mesh(n_devices: Optional[int] = None, device=None, group=None) -> RowMesh:
@@ -124,7 +173,8 @@ def make_row_mesh(n_devices: Optional[int] = None, device=None, group=None) -> R
     `device` (None: the CUDA device; raises without one). `group` is the
     process group the shards spread over; None takes the default group when
     torch.distributed is initialized, else one process. n_devices must be a
-    multiple of the group's size."""
+    multiple of the group's size. A CUDA device in a gloo group stages the
+    collectives through host buffers (`RowMesh.staged`)."""
     device = resolve_device(device)
     dist = torch.distributed
     if group is None and dist.is_available() and dist.is_initialized():
@@ -134,34 +184,118 @@ def make_row_mesh(n_devices: Optional[int] = None, device=None, group=None) -> R
     D = world if n_devices is None else int(n_devices)
     if D < 1 or D % world:
         raise ValueError(f"a {D}-shard mesh does not split over {world} processes")
+    staged = world > 1 and device.type == "cuda" and dist.get_backend(group) == "gloo"
     return RowMesh(n_devices=D, device=device, group=group if world > 1 else None,
-                   rank=rank, world_size=world)
+                   rank=rank, world_size=world, staged=staged)
 
 
 def shard_vector(x, mesh: RowMesh) -> torch.Tensor:
     return mesh.shard_vector(x)
 
 
-class ReplicatedInverse:
-    """The dense coarse inverse, replicated in every process, applied to a
-    row-sharded coarse vector: all-gather, one matmul, this process's rows
-    (the reference's gathered direct coarse solve)."""
+def _gather_operand(mesh: RowMesh, x: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """The all-gathered operand of an operator with n_cols columns; an open
+    `comm_trace` logs the bytes a shard's all-gather brings in."""
+    if mesh.trace is not None:
+        D = mesh.n_devices
+        mesh.trace.append(n_cols * (D - 1) // D * x.element_size())
+    return mesh.gather(x)
 
-    def __init__(self, inv: torch.Tensor, mesh: RowMesh):
-        self.inv = inv
-        self.mesh = mesh
+
+@dataclass(eq=False)
+class RowShardedMatrix:
+    """A plain ELL / BSR operator across processes (the gspmd route): this
+    process's rows of it (`local`); `@` all-gathers the operand and applies
+    them, which is what GSPMD computes for the reference's P(rows)-sharded
+    operators. `shape` is the global one."""
+
+    local: Any
+    mesh: RowMesh
+    shape: Tuple[int, int]
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.local @ _gather_operand(self.mesh, x, self.shape[1])
+
+
+@dataclass(eq=False)
+class GatheredOperator:
+    """A global operator across processes in its gathered form: the operand
+    all-gathered where it is row-sharded (in_rows), the whole operator
+    applied in every process, this process's rows of the result kept where
+    the result is row-sharded (out_rows). What GSPMD computes for an
+    operator whose arrays it replicates; the replicated dense coarse
+    inverse of a row-sharded hierarchy is one (the reference's gathered
+    direct coarse solve), whose device and dtype the hierarchy reports."""
+
+    op: Any
+    mesh: RowMesh
+    in_rows: bool = True
+    out_rows: bool = True
+
+    @property
+    def shape(self):
+        return self.op.shape
 
     @property
     def device(self) -> torch.device:
-        return self.inv.device
+        return self.op.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.inv.dtype
+        return self.op.dtype
 
-    def __matmul__(self, r: torch.Tensor) -> torch.Tensor:
-        full = self.mesh.gather(r)
-        return (self.inv @ full)[self.mesh.local_rows(full.shape[0])]
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.in_rows:
+            x = _gather_operand(self.mesh, x, self.shape[1])
+        y = self.op @ x
+        return y[self.mesh.local_rows(y.shape[0])] if self.out_rows else y
+
+
+def row_shard(op, mesh: RowMesh):
+    """This process's part of a global plain ELL / BSR operator whose row
+    count is a multiple of the mesh (a `RowShardedMatrix`); a halo
+    operator (built sharded), and None, unchanged."""
+    from amg_tpu_torch.parallel.spcomm import HaloBSR, HaloELL
+    from amg_tpu_torch.sparse.bsr import BSRMatrix
+    from amg_tpu_torch.sparse.ell import ELLMatrix
+
+    if op is None or isinstance(op, (HaloELL, HaloBSR)):
+        return op
+    rows = mesh.local_rows(op.shape[0])
+    if isinstance(op, ELLMatrix):
+        local = ELLMatrix(cols=op.cols[rows].clone(), vals=op.vals[rows].clone(),
+                          shape_cols=op.shape_cols)
+    elif isinstance(op, BSRMatrix):
+        if rows.start % op.bm:
+            raise ValueError(f"{op.shape[0] // mesh.world_size} rows a process do not hold "
+                             f"whole {op.bm}-row blocks")
+        rb = slice(rows.start // op.bm, rows.stop // op.bm)
+        local = BSRMatrix(block_cols=op.block_cols[rb].clone(), tiles=op.tiles[rb].clone(),
+                          shape=(rows.stop - rows.start, op.shape[1]))
+    else:
+        raise ValueError(f"row_shard takes ELL / BSR operators, not {type(op).__name__}")
+    return RowShardedMatrix(local=local, mesh=mesh, shape=tuple(op.shape))
+
+
+def shard_smoother(sm, mesh: RowMesh):
+    """This process's part of a level's global smoother state: its rows of
+    the scales and, for a block smoother, the block inverses that meet its
+    rows (`ShardedBlockInverse`: the blocks stay those of the global rows,
+    so a block that straddles two processes is applied whole in both)."""
+    from amg_tpu_torch.smooth.smoothers import ShardedBlockInverse
+
+    rows = mesh.local_rows(sm.scale.shape[0])
+
+    def blocks(inv):
+        if inv is None:
+            return None
+        bs = inv.shape[1]
+        b0, b1 = rows.start // bs, -(-rows.stop // bs)
+        return ShardedBlockInverse(blocks=inv[b0:b1].clone(), row0=b0 * bs, rows=rows,
+                                   mesh=mesh)
+
+    return sm._replace(scale=sm.scale[rows].clone(), inv_wscale=sm.inv_wscale[rows].clone(),
+                       block_inv=blocks(sm.block_inv), block_inv_bwd=blocks(sm.block_inv_bwd))
 
 
 def _pad_csr(m, n_rows_pad: int, n_cols_pad: int, unit_diag_from: int = -1):
@@ -225,26 +359,16 @@ def build_dist_hierarchy(hh, params, mesh: RowMesh, comm: str = "gspmd"):
 
     comm="halo": HaloELL / HaloBSR operators with the setup-time
     boundary-segment pattern (`parallel.spcomm`), the reference's comm-pkg
-    halo exchange. comm="gspmd": plain ELL / BSR on the padded levels (one
-    process only). Smoother state is built on the padded matrices; the
-    coarsest level is the dense inverse of its padded matrix, replicated.
-    Across processes only the Jacobi-family smoothers are ported (a block
-    smoother's blocks would straddle the processes' rows)."""
+    halo exchange. comm="gspmd": plain ELL / BSR on the padded levels,
+    across processes each process's rows of them (`row_shard`). Smoother
+    state is built on the padded matrices (a block smoother's blocks cut
+    from the global rows, `shard_smoother`); the coarsest level is the dense
+    inverse of its padded matrix, replicated."""
     from amg_tpu_torch.setup.hierarchy import Hierarchy, Level
-    from amg_tpu_torch.smooth.smoothers import (
-        BLOCK_TYPES,
-        make_smoother_data,
-        smoother_data_from_arrays,
-    )
+    from amg_tpu_torch.smooth.smoothers import make_smoother_data, smoother_data_from_arrays
 
     if comm not in ("gspmd", "halo"):
         raise ValueError(f"unknown comm {comm!r} (the port has 'halo' and 'gspmd')")
-    if comm == "gspmd":
-        mesh.require_one_process('comm="gspmd"')
-    if mesh.world_size > 1 and params.smoother in BLOCK_TYPES:
-        raise NotImplementedError(
-            f"the {params.smoother.value} smoother across processes: "
-            + NOT_PORTED_ACROSS_PROCESSES.format(what="a block smoother"))
     dtype = params.dtype
     convert = _operator_converter(params, mesh, comm)
     unit = pad_unit(params, mesh)
@@ -257,9 +381,6 @@ def build_dist_hierarchy(hh, params, mesh: RowMesh, comm: str = "gspmd"):
         sm = make_smoother_data(A_pad, params.smoother, w=hl.weight,
                                 block_size=params.block_size,
                                 jgs_weight=params.jgs_weight)
-        if mesh.world_size > 1:
-            rows = mesh.local_rows(np_n)
-            sm = dict(sm, scale=sm["scale"][rows], inv_wscale=sm["inv_wscale"][rows])
         nc_pad = psizes[k + 1] if k + 1 < len(sizes) else None
 
         def cv(mtx, rows, cols):
@@ -299,12 +420,14 @@ def unpad_vector(x: torch.Tensor, pad_info, mesh: Optional[RowMesh] = None) -> t
 
 
 def shard_hierarchy(hier, mesh: RowMesh):
-    """A generic hierarchy as the mesh's row-sharded one: the mesh attached
-    (its solves reduce over it) and, across processes, the coarse inverse
-    applied to the gathered coarse vector. The halo operators are built
-    sharded (`build_dist_hierarchy`); plain ELL / BSR levels are the gspmd
-    route, in one process only. A stencil level raises, as in the
-    reference (the stencil's own halo form is `parallel.halo`)."""
+    """A generic hierarchy (every level's row count a multiple of the mesh)
+    as the mesh's row-sharded one: the mesh attached (its solves reduce over
+    it) and, across processes, each process's part: plain ELL / BSR levels
+    keep their rows and all-gather their operand (`row_shard`, the gspmd
+    route), halo operators are built sharded (`build_dist_hierarchy`), the
+    smoother state keeps its rows (`shard_smoother`) and the coarse inverse
+    applies to the gathered coarse vector. A stencil level raises, as in
+    the reference (the stencil's own halo form is `parallel.halo`)."""
     from amg_tpu_torch.parallel.spcomm import HaloBSR, HaloELL
     from amg_tpu_torch.sparse.bsr import BSRMatrix
     from amg_tpu_torch.sparse.ell import ELLMatrix
@@ -314,12 +437,14 @@ def shard_hierarchy(hier, mesh: RowMesh):
             raise ValueError(
                 "shard_hierarchy needs ELL/BSR operators on every level; build with "
                 "HierarchyParams(keep_stencil_fine=False)")
-        if not isinstance(lv.A, (HaloELL, HaloBSR)):
-            mesh.require_one_process("the gspmd route (plain ELL/BSR levels)")
-    inv = hier.coarse_Ainv
-    if mesh.world_size > 1 and not isinstance(inv, ReplicatedInverse):
-        inv = ReplicatedInverse(inv, mesh)
-    return hier._replace(coarse_Ainv=inv, mesh=mesh)
+    if mesh.world_size == 1:
+        return hier._replace(mesh=mesh)
+    levels = tuple(lv._replace(sm=shard_smoother(lv.sm, mesh),
+                               **{f: row_shard(getattr(lv, f), mesh)
+                                  for f in ("A", "P", "R", "P_s", "R_s", "P_id", "R_id")})
+                   for lv in hier.levels)
+    return hier._replace(levels=levels, coarse_Ainv=GatheredOperator(hier.coarse_Ainv, mesh),
+                         mesh=mesh)
 
 
 def pad_extended_layout(level_sizes, assignment, num_devices):
@@ -368,12 +493,85 @@ def pad_extended_layout(level_sizes, assignment, num_devices):
     return tuple(int(o) for o in padded_offsets), padded_total, row_owner
 
 
+def structured_layout(A, mesh: RowMesh) -> str:
+    """How a structured level spreads over the processes: "planes" where
+    its leading grid axis splits over the shards and its taps reach one
+    plane along it (the plane halo of `parallel.halo`), "rows" where only
+    its row count does (the gathered form), else "replicated" (every
+    process holds the whole level). Pure: reads its arguments only."""
+    from amg_tpu_torch.setup.structured import VarStencilOperator
+    from amg_tpu_torch.sparse.stencil import StencilOperator
+
+    D = mesh.n_devices
+    if isinstance(A, (StencilOperator, VarStencilOperator)) and A.grid_shape[0] % D == 0 \
+            and all(abs(o[0]) <= 1 for o in A.offsets):
+        return "planes"
+    return "rows" if A.shape[0] % D == 0 else "replicated"
+
+
+def shard_structured_operator(A, mesh: RowMesh):
+    """This process's form of a structured level's operator across
+    processes (`structured_layout`): the plane-halo operator, the gathered
+    form, or the operator itself where the level is replicated."""
+    from amg_tpu_torch.parallel.halo import make_halo_stencil
+
+    layout = structured_layout(A, mesh)
+    if layout == "planes":
+        return make_halo_stencil(A, mesh)
+    return GatheredOperator(A, mesh) if layout == "rows" else A
+
+
+def _shard_transfer(T, mesh: RowMesh, src: str, dst: str):
+    """A structured transfer between levels of layouts src -> dst: between
+    two plane-split levels the slab form (one neighbour plane,
+    `parallel.halo.SlabTransfer`; a Dirichlet-masked transfer keeps its
+    masks' rows), else the gathered form."""
+    from amg_tpu_torch.parallel.halo import SlabTransfer
+    from amg_tpu_torch.setup.structured import MaskedTransfer
+
+    if T is None:
+        return None
+    if src == dst == "planes":
+        inner = T.inner if isinstance(T, MaskedTransfer) else T
+        slab = SlabTransfer.of(inner, mesh)
+        if slab is not None:
+            if not isinstance(T, MaskedTransfer):
+                return slab
+            return MaskedTransfer(inner=slab, in_mask=mesh.shard_vector(T.in_mask),
+                                  out_mask=mesh.shard_vector(T.out_mask))
+    return GatheredOperator(T, mesh, in_rows=src != "replicated", out_rows=dst != "replicated")
+
+
 def shard_structured_hierarchy(hier, mesh: RowMesh):
     """A structured (geometric) hierarchy on the mesh. The reference splits
-    the grid arrays along the major axis and lets GSPMD insert the stencil
-    halos, which computes the single-device iteration; in one process that
-    is the hierarchy itself, with the mesh attached. Across processes it
-    raises (ROADMAP item 11c; the explicit plane exchange is
-    `parallel.halo`)."""
-    mesh.require_one_process("the sharded structured hierarchy")
-    return hier._replace(mesh=mesh)
+    each level's grid arrays on the leading axis where it divides the
+    shards, replicates them elsewhere, keeps the vectors row-sharded, and
+    lets GSPMD insert the halos: the single-device iteration. In one process
+    that is the hierarchy itself, with the mesh attached. Across processes
+    each level takes its `structured_layout`: a plane-split level applies
+    its stencil with the plane halo and its transfers to a plane-split
+    neighbour level with one neighbour plane (`SlabTransfer`), a row-split
+    level the gathered form, a replicated level its whole operator in
+    every process; the smoother state keeps this process's rows of a split
+    level, and the coarse inverse of a split coarsest level applies to the
+    gathered vector. Level 0 must split (its vectors are the solve's)."""
+    if mesh.world_size == 1:
+        return hier._replace(mesh=mesh)
+    layout = [structured_layout(lv.A, mesh) for lv in hier.levels]
+    if layout[0] == "replicated":
+        raise ValueError(f"level 0's {hier.levels[0].A.shape[0]} rows do not split over "
+                         f"{mesh.n_devices} shards")
+    levels = []
+    for k, lv in enumerate(hier.levels):
+        fine = layout[k]
+        coarse = layout[k + 1] if k + 1 < len(layout) else None
+        levels.append(lv._replace(
+            A=shard_structured_operator(lv.A, mesh),
+            sm=lv.sm if fine == "replicated" else shard_smoother(lv.sm, mesh),
+            P=_shard_transfer(lv.P, mesh, coarse, fine),
+            R=_shard_transfer(lv.R, mesh, fine, coarse),
+        ))
+    inv = hier.coarse_Ainv
+    if layout[-1] != "replicated":
+        inv = GatheredOperator(inv, mesh)
+    return hier._replace(levels=tuple(levels), coarse_Ainv=inv, mesh=mesh)

@@ -28,14 +28,17 @@ def _apply_taps(grid, coeffs, offsets, tap_ids, zshift, out_shape):
     halo planes where zshift is 1), out_shape (nzl, *rest) one shard's."""
     nd = len(out_shape)
     nz = out_shape[0]
-    # reach-1 zero padding of the non-leading grid axes (F.pad lists the
-    # last axis first)
-    padded = F.pad(grid, [1, 1] * (nd - 1))
+    # zero padding of the non-leading grid axes by the taps' reach along
+    # each (1 for the 7- and 27-point stencils; an interleaved DIA operator
+    # reaches further along its component axis); F.pad lists the last axis
+    # first
+    reach = [0] + [max(abs(o[d]) for o in offsets) for d in range(1, nd)]
+    padded = F.pad(grid, [r for d in reversed(range(1, nd)) for r in (reach[d], reach[d])])
     y = torch.zeros((grid.shape[0],) + tuple(out_shape), dtype=grid.dtype, device=grid.device)
     for t in tap_ids:
         off = offsets[t]
         idx = (slice(None), slice(zshift + off[0], zshift + off[0] + nz)) + tuple(
-            slice(1 + off[d], 1 + off[d] + out_shape[d]) for d in range(1, nd))
+            slice(reach[d] + off[d], reach[d] + off[d] + out_shape[d]) for d in range(1, nd))
         y = y + coeffs[t] * padded[idx]
     return y
 
@@ -44,25 +47,17 @@ def _edge_planes(g: torch.Tensor, mesh: RowMesh):
     """(from_prev, from_next): each local shard's top halo (the previous
     shard's last plane) and bottom halo (the next shard's first plane),
     zero at the ends of the grid."""
-    zero = torch.zeros_like(g[:1, :1])
-    prev_last, next_first = zero, zero
+    prev_last, next_first = torch.zeros_like(g[:1, :1]), torch.zeros_like(g[:1, :1])
     if mesh.world_size > 1:
-        dist = torch.distributed
         me, W = mesh.rank, mesh.world_size
-        prev_last, next_first = torch.zeros_like(zero), torch.zeros_like(zero)
-        ops = []
+        sends, recvs = [], []
         if me > 0:
-            ops += [dist.P2POp(dist.isend, g[0, :1].contiguous(), mesh.global_rank(me - 1),
-                               mesh.group, 1),
-                    dist.P2POp(dist.irecv, prev_last[0], mesh.global_rank(me - 1),
-                               mesh.group, 0)]
+            sends.append((g[0, :1], me - 1, 1))
+            recvs.append((prev_last[0], me - 1, 0))
         if me < W - 1:
-            ops += [dist.P2POp(dist.isend, g[-1, -1:].contiguous(), mesh.global_rank(me + 1),
-                               mesh.group, 0),
-                    dist.P2POp(dist.irecv, next_first[0], mesh.global_rank(me + 1),
-                               mesh.group, 1)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+            sends.append((g[-1, -1:], me + 1, 0))
+            recvs.append((next_first[0], me + 1, 1))
+        mesh.send_recv(sends, recvs)
     from_prev = torch.cat([prev_last, g[:-1, -1:]], 0)
     from_next = torch.cat([g[1:, :1], next_first], 0)
     return from_prev, from_next
@@ -160,3 +155,72 @@ def make_halo_stencil(A, mesh: RowMesh) -> HaloStencilOperator:
     """The halo-exchanging form of a (Var)StencilOperator over the mesh
     (its leading grid axis must divide into the shards)."""
     return HaloStencilOperator(A, mesh)
+
+
+class SlabTransfer:
+    """A structured transfer (`setup.structured.StructuredProlong` or
+    `StructuredRestrict`) between two levels whose leading grid axes both
+    split over the processes: each process contracts its own slab of planes
+    and one neighbour plane (restriction: the previous process's last fine
+    plane; prolongation: the next process's first coarse plane), with its
+    block of the leading axis' 1-D transfer matrix; the other axes contract
+    locally. `of` builds it, or returns None where one plane does not cover
+    the leading axis' coupling at the process boundaries."""
+
+    def __init__(self, T, mesh: RowMesh, M: torch.Tensor, to_coarse: bool):
+        self.T, self.mesh, self.M, self.to_coarse = T, mesh, M, to_coarse
+
+    @classmethod
+    def of(cls, T, mesh: RowMesh):
+        from amg_tpu_torch.setup.structured import StructuredRestrict
+
+        to_coarse = isinstance(T, StructuredRestrict)
+        nzf, nzc = T.fine_shape[0], T.coarse_shape[0]
+        W = mesh.world_size
+        if nzf % W or nzc % W:
+            return None
+        pf, pc = nzf // W, nzc // W
+        S = T.mats[0]
+        if S is None:  # an identity leading axis: the slabs must align
+            return cls(T, mesh, None, to_coarse) if pf == pc else None
+        S_np = S.detach().cpu().numpy()
+        # S with a zero row above it (the plane before the first) and a zero
+        # column after it (the plane after the last)
+        S_pad = np.zeros((nzf + 1, nzc + 1))
+        S_pad[1:, :nzc] = S_np
+        for r in range(W):  # the same test in every process
+            f0, c0 = r * pf, r * pc
+            if to_coarse:
+                inside = np.abs(S_pad[f0: f0 + pf + 1, c0: c0 + pc]).sum()
+                total = np.abs(S_pad[:, c0: c0 + pc]).sum()
+            else:
+                inside = np.abs(S_pad[f0 + 1: f0 + pf + 1, c0: c0 + pc + 1]).sum()
+                total = np.abs(S_pad[f0 + 1: f0 + pf + 1, :]).sum()
+            if inside != total:
+                return None
+        f0, c0 = mesh.rank * pf, mesh.rank * pc
+        if to_coarse:  # (pf + 1, pc): the halo plane's row, then the slab's
+            M = S_pad[f0: f0 + pf + 1, c0: c0 + pc]
+        else:  # (pc + 1, pf): the slab's coarse planes, then the halo's
+            M = S_pad[f0 + 1: f0 + pf + 1, c0: c0 + pc + 1].T
+        return cls(T, mesh, torch.from_numpy(np.ascontiguousarray(M)).to(S), to_coarse)
+
+    @property
+    def shape(self):
+        return self.T.shape
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        from amg_tpu_torch.setup.structured import _transfer_axis
+
+        W = self.mesh.world_size
+        src = self.T.fine_shape if self.to_coarse else self.T.coarse_shape
+        g = x.reshape((src[0] // W,) + tuple(src[1:]))
+        if self.M is not None:
+            # the process's slab as one shard: its neighbours' edge planes
+            from_prev, from_next = _edge_planes(g.unsqueeze(0), self.mesh)
+            g = torch.cat([from_prev[0], g] if self.to_coarse else [g, from_next[0]])
+            g = torch.movedim(torch.tensordot(g, self.M, dims=([0], [0])), -1, 0)
+        for d in range(1, g.ndim):
+            if self.T.mats[d] is not None:
+                g = _transfer_axis(g, self.T.mats[d], d, to_coarse=self.to_coarse)
+        return g.reshape(-1)

@@ -21,9 +21,9 @@ The exchange moves the segments between the D shards of the mesh
 (`parallel.dist.RowMesh`): within one process, an offset class's receive is
 a roll of the gathered send segments over the shard axis and the dense mode
 a transpose of the (D, D, S) segments, both plain tensor indexing on the
-device; across processes, batch_isend_irecv carries each offset class's
-segments between the processes that own its pairs, and all_to_all_single
-the dense mode. `comm_trace` records the wire bytes of every halo matvec.
+device; across processes, the mesh's batched point-to-point
+(`RowMesh.send_recv`) carries each offset class's segments between the
+processes that own its pairs, and its all-to-all the dense mode. `comm_trace` records the wire bytes of every halo matvec.
 
 HaloELL and HaloBSR have `@`, so every cycle, smoother and solver runs on a
 halo-partitioned hierarchy unchanged.
@@ -179,19 +179,17 @@ class HaloExchange:
 
     def _across_processes(self, segs: torch.Tensor) -> torch.Tensor:
         mesh = self.mesh
-        dist = torch.distributed
         L, D, W = mesh.local_devices, mesh.n_devices, mesh.world_size
         if not self.offsets:
             S, tail = segs.shape[2], segs.shape[3:]
             # rows by destination process: (W, L_src, L_dst, S, *tail)
             inp = segs.reshape(L, W, L, S, *tail).transpose(0, 1).contiguous()
-            out = torch.empty_like(inp)
-            dist.all_to_all_single(out, inp, group=mesh.group)
+            out = mesh.all_to_all(inp)
             # out[q, ps, dd] came from shard q L + ps for my shard dd
             return out.transpose(0, 2).transpose(1, 2).reshape(L, D, S, *tail)
         recv = torch.zeros_like(segs)
         me, first = mesh.rank, mesh.first_shard
-        ops = []
+        sends, recvs = [], []
         # every process walks the same global pair list, so the sends and
         # receives between two processes are posted in the same order
         for j, perm in enumerate(self.perms):
@@ -200,14 +198,10 @@ class HaloExchange:
                 if src == me and dst == me:
                     recv[d - first, j] = segs[p - first, j]
                 elif src == me:
-                    ops.append(dist.P2POp(dist.isend, segs[p - first, j].contiguous(),
-                                          mesh.global_rank(dst), mesh.group, j * D + d))
+                    sends.append((segs[p - first, j], dst, j * D + d))
                 elif dst == me:
-                    ops.append(dist.P2POp(dist.irecv, recv[d - first, j],
-                                          mesh.global_rank(src), mesh.group, j * D + d))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+                    recvs.append((recv[d - first, j], src, j * D + d))
+        mesh.send_recv(sends, recvs)
         return recv
 
 

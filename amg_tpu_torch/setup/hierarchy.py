@@ -99,7 +99,7 @@ class Level(NamedTuple):
 
 class Hierarchy(NamedTuple):
     levels: Tuple[Level, ...]
-    # dense inverse of the coarsest operator (parallel.dist.ReplicatedInverse
+    # dense inverse of the coarsest operator (parallel.dist.GatheredOperator
     # on a mesh that spans processes)
     coarse_Ainv: Any
     # the parallel.dist.RowMesh of a row-sharded hierarchy (None: one device);

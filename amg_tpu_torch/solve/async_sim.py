@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Protocol, Tuple
 import numpy as np
 import torch
 
+from amg_tpu_torch.solve.accel import _reducers
 from amg_tpu_torch.solve.cycles import CycleConfig, additive_correction
 from amg_tpu_torch.solve.driver import _check_device, nan_padded
 
@@ -168,7 +169,8 @@ def async_solve(
 ) -> AsyncResult:
     """Solve A x = b with the asynchronous additive model on `device` (None:
     the CUDA device; raises without one; the hierarchy must live there).
-    draws=None takes GeneratorDraws(seed)."""
+    draws=None takes GeneratorDraws(seed). On a row-sharded hierarchy b and
+    x0 are this process's rows (of the padded vector)."""
     device = _check_device(hier, device)
     b = torch.as_tensor(b).to(device=device, dtype=hier.dtype)
     x0 = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
@@ -305,6 +307,15 @@ def _gather_stale(acfg: AsyncConfig, ring, cols):
 def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
     A0 = hier.levels[0].A
     n = b.shape[0]
+    # a row-sharded hierarchy: b and x are this process's rows, the norms
+    # reduce over the mesh, and a level's per-row read uniforms (drawn for
+    # the whole vector, equal in every process) take this process's rows
+    mesh = hier.mesh
+    norm = _reducers(mesh)[1]
+    n_all, rows = n, slice(None)
+    if mesh is not None and mesh.world_size > 1:
+        n_all = n * mesh.world_size
+        rows = mesh.local_rows(n_all)
     L = hier.num_levels
     W = acfg.sim_read_delay + 1  # ring depth
     full = acfg.async_type == "full"
@@ -316,7 +327,7 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
         raise ValueError("async accel does not compose with comm coalescing (comm_every > 1)")
 
     r0 = b - A0 @ x0
-    r0norm = torch.linalg.norm(r0)
+    r0norm = norm(r0)
     safe_r0 = torch.where(r0norm == 0.0, torch.ones_like(r0norm), r0norm)
     ring = (x0 if sol else r0).unsqueeze(0).repeat(W, 1)
     last_read = (torch.zeros((L, n), dtype=torch.int32, device=b.device) if full
@@ -340,7 +351,7 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
         total_c = None
         for lvl in np.flatnonzero(fire):
             lvl = int(lvl)
-            u_read = (draws.read_rows(lvl, n, b.dtype, b.device) if full
+            u_read = (draws.read_rows(lvl, n_all, b.dtype, b.device)[rows] if full
                       else draws.read_scalar(lvl))
             col = _stale_read_cols(acfg, last_read[lvl], k, u_read)
             last_read[lvl] = col
@@ -374,11 +385,11 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
         if update:
             if total_c is not None:
                 r_state = r_state - A0 @ total_c
-            relnorm = torch.linalg.norm(r_state) / safe_r0
+            relnorm = norm(r_state) / safe_r0
             snap = x if sol else r_state
         else:
             r_true = b - A0 @ x
-            relnorm = torch.linalg.norm(r_true) / safe_r0
+            relnorm = norm(r_true) / safe_r0
             snap = x if sol else r_true
         ring[(k + 1) % W].copy_(snap)
         k += 1

@@ -100,10 +100,15 @@ def async_smooth_solve(
     tol: float = 1e-8,
     max_cycles: int = 2000,
     device=None,
+    mesh=None,
 ) -> AsyncSmoothResult:
     """Solve A x = b by asynchronous block relaxation on `device` (None: the
     CUDA device; raises without one; A and sm must live there).
-    draws=None takes GeneratorSmoothDraws(seed)."""
+    draws=None takes GeneratorSmoothDraws(seed). `mesh`: the row mesh whose
+    rows A, sm, b and x0 are (a halo operator's); the blocks stay those of
+    the global rows (neighbor_mask indexes them), each process relaxes its
+    rows of the firing blocks, and the blocks' residual norms and the solve's
+    norms reduce over the mesh."""
     device = resolve_device(device)
     if sm.inv_wscale.device != device:
         raise ValueError(f"operator lives on {sm.inv_wscale.device}, solve asked for {device}")
@@ -114,7 +119,13 @@ def async_smooth_solve(
         draws = GeneratorSmoothDraws(seed, device)
     n = b.shape[0]
     B = cfg.num_blocks
-    seg = torch.arange(n, device=device) // -(-n // B)  # row -> block
+    norm = torch.linalg.norm if mesh is None else mesh.norm
+    n_all, rows = n, slice(0, n)
+    if mesh is not None and mesh.world_size > 1:
+        n_all = n * mesh.world_size
+        rows = mesh.local_rows(n_all)
+    # this process's rows -> their blocks of the global rows
+    seg = torch.arange(rows.start, rows.stop, device=device) // -(-n_all // B)
     nbr = torch.as_tensor(np.asarray(neighbor_mask, dtype=bool), device=device)
     if cfg.sps_min_prob > 0.0:
         deg = torch.clamp(nbr.sum(dim=1).to(dtype), min=1.0)
@@ -123,7 +134,7 @@ def async_smooth_solve(
         alpha = cfg.sps_alpha
 
     r = b - A @ x
-    r0n = torch.linalg.norm(r)
+    r0n = norm(r)
     safe_r0 = torch.where(r0n == 0.0, torch.ones_like(r0n), r0n)
     counts = torch.zeros(B, dtype=torch.int64, device=device)
     relnorm = torch.full((), float("inf"), dtype=dtype, device=device)
@@ -134,6 +145,8 @@ def async_smooth_solve(
             p = torch.full((B,), cfg.fire_prob, dtype=dtype, device=device)
         else:
             rnorms = torch.zeros(B, dtype=dtype, device=device).index_add_(0, seg, r.abs())
+            if mesh is not None:
+                rnorms = mesh.all_reduce(rnorms)
             bigger = (rnorms[None, :] > rnorms[:, None]) & nbr
             xcount = bigger.sum(dim=1).to(dtype)
             if cfg.method == "southwell_inv":
@@ -145,7 +158,7 @@ def async_smooth_solve(
         x = x + torch.where(fire[seg], du, torch.zeros_like(du))
         counts += fire
         r = b - A @ x  # the next step's residual too (x is unchanged until then)
-        relnorm = torch.linalg.norm(r) / safe_r0
+        relnorm = norm(r) / safe_r0
         k += 1
         rel = float(relnorm)  # the step's one host read
         hist.append(rel)

@@ -19,6 +19,7 @@ from amg_tpu_torch.dtypes import resolve_device
 from amg_tpu_torch.ops.vector import residual
 from amg_tpu_torch.solve.accel import (
     ChebyCoeffs,
+    _reducers,
     cheby_init,
     cheby_update,
     estimate_cycle_eigs,
@@ -92,8 +93,7 @@ def solve(
     A0 = hier.levels[0].A
     # a row-sharded hierarchy's vectors are this process's rows: its mesh
     # reduces over all of them
-    dot, norm = (torch.dot, torch.linalg.norm) if hier.mesh is None \
-        else (hier.mesh.dot, hier.mesh.norm)
+    dot, norm = _reducers(hier.mesh)
     if outer == "pcg":
         res = pcg(
             lambda v: A0 @ v,
@@ -136,23 +136,23 @@ def cheby_setup(
     (None: the CUDA device; the hierarchy must live there).
 
     method: "power" (power + shifted power), "lobpcg" (block LOBPCG
-    Rayleigh-Ritz) or "lanczos" (extreme Ritz values)."""
+    Rayleigh-Ritz) or "lanczos" (extreme Ritz values). On a row-sharded
+    hierarchy the estimators reduce over its mesh."""
     device = _check_device(hier, device)
     A0 = hier.levels[0].A
-    n = A0.shape[0]
+    n = A0.shape[0]  # the global row count
     dtype = hier.levels[0].sm.inv_wscale.dtype
 
     def apply_MinvA(u):
         f = A0 @ u
         return cycle_step(hier, cfg, torch.zeros_like(f), f)
 
+    kw = {"seed": seed, "device": device, "mesh": hier.mesh}
     if method == "lobpcg":
         return estimate_eigs_lobpcg(apply_MinvA, n, dtype, num_iters=max(num_iters // 2, 6),
-                                    seed=seed, device=device)
+                                    **kw)
     if method == "lanczos":
-        return estimate_eigs_lanczos(apply_MinvA, n, dtype, num_iters=num_iters, seed=seed,
-                                     device=device)
+        return estimate_eigs_lanczos(apply_MinvA, n, dtype, num_iters=num_iters, **kw)
     if method != "power":
         raise ValueError(f"unknown cheby_eig method {method!r}")
-    return estimate_cycle_eigs(apply_MinvA, n, dtype, num_iters=num_iters, seed=seed,
-                               device=device)
+    return estimate_cycle_eigs(apply_MinvA, n, dtype, num_iters=num_iters, **kw)

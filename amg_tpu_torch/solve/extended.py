@@ -24,7 +24,7 @@ the (L,) firing and read uniforms from an injectable draw source
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Protocol, Tuple
+from typing import Any, NamedTuple, Optional, Protocol, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -43,6 +43,20 @@ class ExtendedSystem:
     inv_wdiag: torch.Tensor  # (N,) w / diag(AA): the Jacobi scaling
     AA: Optional[ELLMatrix]  # explicit mode only
     offsets: Tuple[int, ...]  # block offsets, len L + 1
+    # the grid-mapped system's row mesh: U, inv_wdiag and AA's rows are this
+    # process's rows of the extended vector; the fine vectors are whole
+    mesh: Any = None
+
+    @property
+    def rows(self) -> slice:
+        """This process's rows of the extended vector."""
+        N = self.offsets[-1]
+        return slice(0, N) if self.mesh is None else self.mesh.local_rows(N)
+
+    def row_levels(self) -> torch.Tensor:
+        """The level block of each of this process's rows, on the device."""
+        lvl = np.repeat(np.arange(len(self.offsets) - 1), np.diff(self.offsets))[self.rows]
+        return torch.from_numpy(lvl).to(self.inv_wdiag.device)
 
 
 def build_extended_system(
@@ -101,12 +115,15 @@ def build_sharded_extended_system(
     correction exchange (`parallel.spcomm.comm_trace` counts it). Padding
     rows carry a unit diagonal and a zero inv_wdiag, so they never move.
     The chains keep the padded block widths; `ext_matvec`,
-    `estimate_cycle_eigs` and `ext_solve` take the system unchanged."""
+    `estimate_cycle_eigs` (with mesh=ext.mesh) and `ext_solve` take the
+    system unchanged. Across processes U is this process's rows of the
+    extended vector (and inv_wdiag with it), the fine vectors are whole in
+    every process, and the chains read them whole: `ext_prolong` gathers U,
+    `ext_restrict` keeps this process's block rows, as GSPMD computes."""
     from amg_tpu_torch.parallel.dist import pad_extended_layout
     from amg_tpu_torch.parallel.partition import assign_levels_to_devices, compute_level_work
     from amg_tpu_torch.parallel.spcomm import build_halo_ell
 
-    mesh.require_one_process("the grid-mapped extended system (ext_solve reads whole vectors)")
     device = mesh.device
     L = hh.num_levels
     D = mesh.n_devices
@@ -159,13 +176,18 @@ def build_sharded_extended_system(
         d = lv.A.diagonal()
         d = np.where(d == 0.0, 1.0, d)
         inv_wdiag[p_off[k]: p_off[k] + sizes[k]] = lv.weight / d
+    rows = mesh.local_rows(p_total)
     return ExtendedSystem(pchains=pchains, rchains=rchains,
-                          inv_wdiag=torch.from_numpy(inv_wdiag).to(device=device, dtype=dtype),
-                          AA=AA, offsets=tuple(p_off))
+                          inv_wdiag=torch.from_numpy(inv_wdiag[rows]).to(device=device,
+                                                                          dtype=dtype),
+                          AA=AA, offsets=tuple(p_off), mesh=mesh)
 
 
 def ext_prolong(ext: ExtendedSystem, U: torch.Tensor) -> torch.Tensor:
-    """x = C U = sum_k Pchain_k U_k (a fine-grid vector)."""
+    """x = C U = sum_k Pchain_k U_k (a fine-grid vector, whole; U is
+    gathered across processes first)."""
+    if ext.mesh is not None:
+        U = ext.mesh.gather(U)
     x = None
     for k, pc in enumerate(ext.pchains):
         c = pc @ U[ext.offsets[k]: ext.offsets[k + 1]]
@@ -174,8 +196,14 @@ def ext_prolong(ext: ExtendedSystem, U: torch.Tensor) -> torch.Tensor:
 
 
 def ext_restrict(ext: ExtendedSystem, y: torch.Tensor) -> torch.Tensor:
-    """C^T y: the restrict chains of a fine-grid vector, concatenated."""
-    return torch.cat([r @ y for r in ext.rchains])
+    """C^T y: the restrict chains of a fine-grid vector, concatenated (this
+    process's rows of it: the chains of the blocks that meet them)."""
+    rows, parts = ext.rows, []
+    for k, r in enumerate(ext.rchains):
+        lo, hi = max(ext.offsets[k], rows.start), min(ext.offsets[k + 1], rows.stop)
+        if lo < hi:
+            parts.append((r @ y)[lo - ext.offsets[k]: hi - ext.offsets[k]])
+    return torch.cat(parts)
 
 
 def ext_matvec(ext: ExtendedSystem, A0, U: torch.Tensor) -> torch.Tensor:
@@ -238,8 +266,8 @@ def ext_solve(
         draws = GeneratorExtDraws(seed)
     A0 = hier.levels[0].A
     L = len(ext.pchains)
-    N = ext.offsets[-1]
-    sizes = torch.tensor(np.diff(ext.offsets), device=device)
+    N = ext.inv_wdiag.shape[0]  # this process's rows of the extended vector
+    row_lvl = ext.row_levels()
     W = sim_read_delay + 1
     async_on = async_fire_prob < 1.0
 
@@ -260,8 +288,8 @@ def ext_solve(
             fire = u_fire < async_fire_prob
             low = max(k - sim_read_delay, 0)
             col = np.round(low + u_read * (k - low)).astype(np.int64)
-            U_read = torch.cat([ring[col[l] % W, ext.offsets[l]: ext.offsets[l + 1]]
-                                for l in range(L)])
+            slot = torch.from_numpy(col % W).to(device)[row_lvl]
+            U_read = ring.gather(0, slot.unsqueeze(0)).squeeze(0)
         else:
             U_read = U
         du = ext.inv_wdiag * (FF - ext_matvec(ext, A0, U_read))
@@ -274,8 +302,7 @@ def ext_solve(
                 ch = cheby_update(ch, du, cheby_coeffs)
                 du = ch.d
         if async_on:
-            rows = torch.repeat_interleave(torch.from_numpy(fire).to(device), sizes)
-            U = torch.where(rows, U + du, U)
+            U = torch.where(torch.from_numpy(fire).to(device)[row_lvl], U + du, U)
         else:
             U = U + du
         x = x0 + ext_prolong(ext, U)

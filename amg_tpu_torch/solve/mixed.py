@@ -39,6 +39,7 @@ import torch
 
 from amg_tpu_torch.dtypes import resolve_device
 from amg_tpu_torch.ops.vector import residual
+from amg_tpu_torch.solve.accel import _reducers
 from amg_tpu_torch.solve.cycles import CycleConfig, cycle_step
 from amg_tpu_torch.solve.krylov import pcg
 
@@ -70,15 +71,18 @@ def mixed_solve(
     """Solve A x = b to `tol` (relative residual of the float64 fine operator
     A64) with one `cycle_step` on `hier` (its dtype, typically float32) from
     a zero guess per refinement step, on `device` (None: the CUDA device;
-    raises without one). One host read per cycle (the stop test)."""
+    raises without one). One host read per cycle (the stop test). On a
+    row-sharded hierarchy b, x0 and A64's vectors are this process's rows
+    and the norms reduce over its mesh."""
     device = resolve_device(device)
     if hier.device != device:
         raise ValueError(f"hierarchy lives on {hier.device}, solve asked for {device}")
     f64 = torch.float64
+    norm = _reducers(hier.mesh)[1]
     b = torch.as_tensor(b).to(device=device, dtype=f64)
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
     r = residual(A64, x, b)
-    r0n = float(torch.linalg.norm(r))
+    r0n = float(norm(r))
     safe_r0 = r0n if r0n > 0.0 else 1.0
     hist = [1.0]
     rel = math.inf
@@ -88,7 +92,7 @@ def mixed_solve(
         r32 = r.to(torch.float32).to(hier.dtype)
         x = x + cycle_step(hier, cfg, torch.zeros_like(r32), r32).to(f64)
         r = residual(A64, x, b)
-        rel = float(torch.linalg.norm(r)) / safe_r0
+        rel = float(norm(r)) / safe_r0
         hist.append(rel)
     h = np.full(max_cycles + 1, np.nan)
     h[: len(hist)] = hist
@@ -110,11 +114,13 @@ def mixed_pcg(
 ) -> MixedSolveResult:
     """Solve A x = b to `tol` (relative residual of the float64 operator
     A_acc) with PCG preconditioned by one `cycle_step` on `hier`, on
-    `device` (None: the CUDA device; raises without one)."""
+    `device` (None: the CUDA device; raises without one); on a row-sharded
+    hierarchy the dots and norms reduce over its mesh."""
     device = resolve_device(device)
     if hier.device != device:
         raise ValueError(f"hierarchy lives on {hier.device}, solve asked for {device}")
     f64 = torch.float64
+    dot, norm = _reducers(hier.mesh)
     b = torch.as_tensor(b).to(device=device, dtype=f64)
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).to(b)
     if inner_iters is None:
@@ -128,13 +134,14 @@ def mixed_pcg(
         return torch.zeros_like(r)
 
     r = residual(A_acc, x, b)
-    r0n = float(torch.linalg.norm(r))
+    r0n = float(norm(r))
     safe_r0 = r0n if r0n > 0.0 else 1.0
     rel = r0n / safe_r0
     hist = [1.0]
     total = 0
     while rel > tol and total < max_cycles:
-        res = pcg(A_acc.matvec, precond, r, zero(r), tol=inner_tol, max_iters=inner_iters)
+        res = pcg(lambda v: A_acc @ v, precond, r, zero(r), tol=inner_tol,
+                  max_iters=inner_iters, dot=dot, norm=norm)
         x = x + res.x
         total += int(res.iters)
         # inner history relative to its own r0 (the outer residual): rescale
@@ -144,7 +151,7 @@ def mixed_pcg(
         inner_h = inner_h[~np.isnan(inner_h)][1:]
         prev_rel = rel
         r = residual(A_acc, x, b)
-        rel = float(torch.linalg.norm(r)) / safe_r0
+        rel = float(norm(r)) / safe_r0
         if inner_h.size:
             hist.extend(float(v) * prev_rel for v in inner_h[:-1])
         hist.append(rel)

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.dtypes import resolve_device
-from amg_tpu_torch.utils.config import ASYNC_SOLVERS, EXT_SOLVERS, SolverOptions
+from amg_tpu_torch.utils.config import EXT_SOLVERS, SolverOptions
 from amg_tpu_torch.utils.stats import SolveStats, Timer
 
 
@@ -199,6 +199,40 @@ def resolve_delays(opts: SolverOptions, num_levels: int) -> dict:
             "fail_duration": fail_duration}
 
 
+def hierarchy_params(opts: SolverOptions):
+    """The HierarchyParams of a (fixed-up) run's options."""
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams
+    from amg_tpu_torch.smooth.smoothers import SmootherType
+
+    if opts.num_functions > 0:
+        num_functions = opts.num_functions
+    elif opts.problem == "elasticity":
+        num_functions = 3 if opts.nz else 2
+    else:
+        num_functions = 1
+    return HierarchyParams(
+        strong_threshold=opts.strong_threshold,
+        num_functions=num_functions,
+        coarsen_type=opts.coarsen_type,
+        interp_type=opts.interp_type,
+        trunc_factor=opts.trunc_factor,
+        p_max_elmts=opts.p_max_elmts,
+        max_levels=opts.max_levels,
+        max_coarse_size=opts.max_coarse_size,
+        agg_num_levels=opts.agg_nl,
+        add_trunc_factor=opts.add_tr,
+        seed=opts.seed,
+        smoother=SmootherType(opts.smoother),
+        smooth_weight=opts.smooth_weight,
+        block_size=opts.block_size,
+        keep_stencil_fine=True,
+        setup_type=opts.setup_type,
+        # "dia" names the fine operator's form; the other levels take the
+        # default format, as in the reference
+        device_format="auto" if opts.device_format == "dia" else opts.device_format,
+    )
+
+
 @dataclass
 class Experiment:
     """A set-up run: the options (fixed up), the device, the problem, the
@@ -224,7 +258,7 @@ class Experiment:
 def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
     """Options -> problem -> hierarchy on `device` (None: the CUDA device;
     raises without one). Fixes up `opts` in place, as the reference does."""
-    from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_hierarchy
+    from amg_tpu_torch.setup.hierarchy import build_hierarchy
     from amg_tpu_torch.smooth.smoothers import SmootherType
 
     device = resolve_device(device)
@@ -251,33 +285,8 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
         exp.done = True
         return exp
     smoother = exp.smoother = SmootherType(opts.smoother)
-    if opts.num_functions > 0:
-        num_functions = opts.num_functions
-    elif opts.problem == "elasticity":
-        num_functions = 3 if opts.nz else 2
-    else:
-        num_functions = 1
-    params = exp.params = HierarchyParams(
-        strong_threshold=opts.strong_threshold,
-        num_functions=num_functions,
-        coarsen_type=opts.coarsen_type,
-        interp_type=opts.interp_type,
-        trunc_factor=opts.trunc_factor,
-        p_max_elmts=opts.p_max_elmts,
-        max_levels=opts.max_levels,
-        max_coarse_size=opts.max_coarse_size,
-        agg_num_levels=opts.agg_nl,
-        add_trunc_factor=opts.add_tr,
-        seed=opts.seed,
-        smoother=smoother,
-        smooth_weight=opts.smooth_weight,
-        block_size=opts.block_size,
-        keep_stencil_fine=True,
-        setup_type=opts.setup_type,
-        # "dia" names the fine operator's form; the other levels take the
-        # default format, as in the reference
-        device_format="auto" if opts.device_format == "dia" else opts.device_format,
-    )
+    params = exp.params = hierarchy_params(opts)
+    num_functions = params.num_functions
     if opts.hierarchy == "structured":
         dtype_s = torch.float32 if opts.mixed_precision else params.dtype
         if prob.stencil is not None:
@@ -307,11 +316,13 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
             nf = num_functions
             node_shape = tuple(gs[:-1]) + (gs[-1] // max(nf, 1),)
             if opts.mixed_precision:
-                # the float64 outer operator of mixed_pcg (K5 on the card)
+                # the float64 outer operator of mixed_pcg (K5 on the card;
+                # multi-device: the plain DIA form)
                 vs = csr_to_dia_stencil(prob.A, gs)
-                exp.A_acc = DiaKernelOperator.from_var_stencil(VarStencilOperator(
-                    coeffs=vs.coeffs.to(device), offsets=vs.offsets,
-                    grid_shape=vs.grid_shape))
+                exp.A_acc = VarStencilOperator(coeffs=vs.coeffs.to(device), offsets=vs.offsets,
+                                               grid_shape=vs.grid_shape)
+                if opts.num_devices <= 1:
+                    exp.A_acc = DiaKernelOperator.from_var_stencil(exp.A_acc)
             exp.hh, exp.hier = build_dia_structured_hierarchy(
                 prob.A,
                 node_shape,
@@ -332,12 +343,18 @@ def setup_experiment(opts: SolverOptions, device=None) -> Experiment:
                 "problem"
             )
         if opts.num_devices > 1:
-            from amg_tpu_torch.parallel.dist import make_row_mesh, shard_structured_hierarchy
+            from amg_tpu_torch.parallel.dist import (
+                make_row_mesh,
+                shard_structured_hierarchy,
+                shard_structured_operator,
+            )
 
             if prob.n % opts.num_devices == 0:
                 exp.mesh = make_row_mesh(opts.num_devices, device)
                 exp.hier = shard_structured_hierarchy(exp.hier, exp.mesh)
                 exp.pad_info = (prob.n, prob.n)  # no padding on the structured path
+                if exp.A_acc is not None and exp.mesh.world_size > 1:
+                    exp.A_acc = shard_structured_operator(exp.A_acc, exp.mesh)
             else:
                 print(
                     f"warning: n={prob.n} not divisible by {opts.num_devices} "
@@ -488,8 +505,6 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
 
         b = pad_vector(b, exp.pad_info, mesh)
         x0 = pad_vector(x0, exp.pad_info, mesh)
-        if opts.solver in ASYNC_SOLVERS or opts.mixed_precision:
-            mesh.require_one_process(f"{opts.solver} on a row mesh")
     cfg = cycle_config(opts, smoother)
     gw = None
     try:
@@ -509,14 +524,16 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
                 fire_prob=opts.fire_prob,
             )
             nbr = block_neighbor_mask(prob.A, opts.num_blocks)
-            A_s, sm_s = hier.levels[0].A, hier.levels[0].sm
+            A_s, sm_s, smooth_mesh = hier.levels[0].A, hier.levels[0].sm, mesh
             if opts.num_devices > 1 and int(sm_s.scale.shape[0]) == prob.n:
-                A_s, sm_s, b, x0 = _halo_smoothing(exp, A_s, sm_s, b, x0)
+                A_s, sm_s, b, x0, smooth_mesh = _halo_smoothing(exp, A_s, sm_s, b, x0)
             res = async_smooth_solve(
                 A_s, sm_s, ascfg, nbr, b, x0,
                 draws=draws, seed=opts.seed, tol=opts.tol,
-                max_cycles=opts.num_cycles, device=device,
+                max_cycles=opts.num_cycles, device=device, mesh=smooth_mesh,
             )
+            if smooth_mesh is not None and mesh is None:
+                res = res._replace(x=smooth_mesh.gather(res.x))
         elif opts.solver in EXT_SOLVERS:
             from amg_tpu_torch.solve.accel import estimate_cycle_eigs
             from amg_tpu_torch.solve.extended import (
@@ -542,7 +559,7 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
                 lambda op, u: op[0].inv_wdiag * ext_matvec(op[0], op[1], u),
                 ext.offsets[-1], dtype,
                 num_iters=opts.cheby_power_iters, range_start=True,
-                operand=(ext, hier.levels[0].A), device=device,
+                operand=(ext, hier.levels[0].A), device=device, mesh=ext.mesh,
             )
             res = ext_solve(
                 hier, ext, b, x0, tol=opts.tol, max_cycles=opts.num_cycles,
@@ -737,15 +754,15 @@ def _halo_smoothing(exp: Experiment, A_s, sm_s, b, x0):
     """One-level async smoothing on num_devices shards: the reference's
     finest-grid halo channel, a plane exchange for a stencil whose leading
     axis divides into the shards (`parallel.halo`), a boundary-segment
-    HaloELL where the row count does; (A, sm, b, x0) on the mesh, or
-    unchanged where neither divides (the reference stays on one device
-    there too; said on stdout)."""
-    from amg_tpu_torch.parallel.dist import make_row_mesh
+    HaloELL where the row count does; (A, sm, b, x0, mesh) with A, sm, b and
+    x0 this process's rows on the mesh, or unchanged with mesh None where
+    neither divides (the reference stays on one device there too; said on
+    stdout)."""
+    from amg_tpu_torch.parallel.dist import make_row_mesh, shard_smoother
 
     opts, prob, device = exp.opts, exp.prob, exp.device
     D = opts.num_devices
     mesh = make_row_mesh(D, device)
-    mesh.require_one_process("one-level async smoothing")
     if prob.stencil is not None and prob.stencil.grid_shape[0] % D == 0:
         from amg_tpu_torch.parallel.halo import make_halo_stencil
         from amg_tpu_torch.sparse.stencil import StencilOperator
@@ -761,23 +778,29 @@ def _halo_smoothing(exp: Experiment, A_s, sm_s, b, x0):
     else:
         print(f"warning: n={prob.n} not divisible by {D} devices -- one-level async "
               "smoothing runs on one device")
-        return A_s, sm_s, b, x0
-    return A_h, sm_s, mesh.shard_vector(b), mesh.shard_vector(x0)
+        return A_s, sm_s, b, x0, None
+    if mesh.world_size > 1:
+        sm_s = shard_smoother(sm_s, mesh)
+    return A_h, sm_s, mesh.shard_vector(b), mesh.shard_vector(x0), mesh
 
 
 def _fine_operator64(prob, hier):
     """mixed_solve's float64 fine operator: the problem's stencil in float64
-    on the hierarchy's device where level 0 is a stencil of another dtype,
-    else level 0 itself."""
+    on the hierarchy's device where the hierarchy is a stencil one of
+    another dtype (across processes in its level 0's sharded form), else
+    level 0 itself."""
     from amg_tpu_torch.sparse.stencil import StencilOperator
 
-    A0 = hier.levels[0].A
-    if isinstance(A0, StencilOperator) and A0.weights.dtype != torch.float64:
-        return StencilOperator(
-            weights=prob.stencil.weights.to(device=hier.device, dtype=torch.float64),
-            offsets=A0.offsets, grid_shape=A0.grid_shape,
-        )
-    return A0
+    if hier.dtype == torch.float64 or prob.stencil is None:
+        return hier.levels[0].A
+    st = prob.stencil
+    op = StencilOperator(weights=st.weights.to(device=hier.device, dtype=torch.float64),
+                         offsets=st.offsets, grid_shape=st.grid_shape)
+    if hier.mesh is not None and hier.mesh.world_size > 1:
+        from amg_tpu_torch.parallel.dist import shard_structured_operator
+
+        op = shard_structured_operator(op, hier.mesh)
+    return op
 
 
 def run_experiment(opts: SolverOptions, device=None, draws=None) -> SolveStats:

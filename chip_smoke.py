@@ -204,6 +204,25 @@ Phases (any failure exits non-zero and prints no result line):
      one shard there), and the same at n = 6, where each group has a shard
      of its own; (e)
      dryrun_multichip(8) inside its gates, its row and grid parts. A {"grid": ...} line records it.
+ 20. every route across processes (ROADMAP item 11c): chip_smoke.py
+     re-invokes itself as 2 workers (`--p20-worker`), NCCL with one card
+     each where the machine shows two cards, else gloo on cuda:0 with the
+     mesh staging each collective through host buffers (NCCL refuses two
+     ranks on one device, `tools/torch_nccl_probe.py`); each holds 4 of the
+     8 shards and prints its backend and device. Each route is held against
+     the one-process 8-shard run of the same options (phase 18's / 19's x
+     where they ran it): (a) gspmd on phase 10's 96^3 hierarchy; (b) FULL
+     async_multadd (phase 11's options, the same seeded generators), (c)
+     mixed_solve (float32 cycles, float64 halo operator) and (d) Chebyshev
+     after cheby_setup by power (its bounds to 1e-12) on its halo
+     hierarchy; (e) async_smooth for 100 steps on the 27-point 96^3 plane
+     halo (its history to 1e-12); (f) the grid-mapped extended system at
+     27pt 30^3; (g) config4's options with hybrid JGS on the 157k beam (PCG,
+     x within 1e-10); (h) 126^3 on the structured hierarchy through the
+     generic cycle: the same steps, x within 1e-12 elsewhere, every kernel
+     counter 0 in every process; host ms, device ms and events a step, and
+     the bytes sent to the other process a step (`RowMesh.sent_bytes`). A
+     {"routes": ...} line records it.
 The last two lines are the `kernels` JSON object (K1 on both of its
 kernels, K2-K5, K5's bf16-plane sweep) and
 {"ok": true, "device": {...}}.
@@ -2219,10 +2238,11 @@ def plain_driver_solve(hier, exp, device):
     return res, read_counts()
 
 
-def drivers_phase(device):
+def drivers_phase(device, keep):
     """Phase 17: the port's own entry point, `run_experiment` (as its halves
     `setup_experiment` / `solve_experiment`, which keep the hierarchy for the
-    plain composition), and its CLI on the card."""
+    plain composition), and its CLI on the card. Puts (a)'s host arrays
+    into `keep` (phase 20's 126^3 structured route)."""
     import dataclasses
 
     import torch
@@ -2238,6 +2258,7 @@ def drivers_phase(device):
     # (a) the flagship at full width: struct_solve through the runner
     opts = SolverOptions(problem="27pt", n=DRIVER_N, hierarchy="structured")
     exp, st, counts = run_driver(opts, device)
+    keep["struct arrays"] = exp.hh.arrays
     x = st.x.cpu().numpy()
     b_np = np.random.default_rng(0).random(exp.prob.n)
     true_rel = true_rel_residual(exp.prob, x, b_np)
@@ -2523,6 +2544,8 @@ def multidevice_phase(device, keep, ams_ref):
             r.update(host_ms_per_cycle=host_ms, device_busy_ms_per_cycle=busy,
                      events_per_cycle=events, idle_share=idle)
         rec[f"96 {comm}"] = r
+        if comm == "gspmd":  # phase 20's one-process run of the route
+            keep.update({"gspmd x": x, "gspmd rec": {"steps": res.iters, "counts": counts}})
         del hier
         torch.cuda.empty_cache()
         log(f"  (b) {comm}: {time.perf_counter() - t_phase:.1f} s into the phase")
@@ -2715,7 +2738,7 @@ def grid_phase(device, keep):
     r.update(shard_device_ms=shard_ms, shard_model_work=model)
     rec["96 full"] = r
     del storage, hier, ring
-    for key in ("hier64", "hh", "async_x"):
+    for key in ("hier64", "async_x"):
         keep.pop(key, None)
     torch.cuda.empty_cache()
     log(f"  (b) {time.perf_counter() - t_phase:.1f} s into the phase")
@@ -2750,6 +2773,8 @@ def grid_phase(device, keep):
     if not st.rel_resnorm <= 1e-8:
         fails.append("grid-mapped extended system: rel_res > 1e-8")
     no_kernel("grid-mapped extended system", counts)
+    # phase 20's one-process run of the route
+    keep.update({"ext x": st.x.cpu().numpy(), "ext rec": {"steps": st.cycles, "counts": counts}})
     del exp
     torch.cuda.empty_cache()
     log(f"  (c) {time.perf_counter() - t_phase:.1f} s into the phase")
@@ -2813,6 +2838,429 @@ def grid_phase(device, keep):
     rec["dryrun_s"] = time.perf_counter() - t0
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"grid phase: {rec['phase_s']:.1f} s (the dry run {rec['dryrun_s']:.1f} s)")
+    return rec, fails
+
+
+# phase 20: the routes across processes. chip_smoke.py re-invokes itself as
+# P20_WORKERS processes (`--p20-worker`): NCCL, one card each, where the
+# machine shows that many cards; otherwise gloo on cuda:0 with the mesh
+# staging each collective through host buffers (NCCL refuses two ranks on
+# one device). Each process holds 4 of the 8 shards; every route is held
+# against the one-process 8-shard run of the same options, which phases
+# 18 / 19 ran or this phase runs first. The shared host inputs (phase 10's
+# 96^3 host hierarchy, b, the beam's and the 126^3 structured setup) go to
+# the workers as files in a temporary directory of the checkout.
+P20_WORKERS = 2
+P20_ROUTES = ("gspmd", "async full", "mixed", "cheby power", "async_smooth", "extended",
+              "hybrid_jgs beam", "structured")
+P20_SMOOTH_STEPS = 100
+P20_STRUCT_OPTS = {"problem": "27pt", "n": N_SIDE, "hierarchy": "structured",
+                   "solver": "mult", "num_devices": MULTI_D}
+P20_EXT_OPTS = {"problem": "27pt", "n": GRID_EXT_N, "solver": "explicit_ext_bpx",
+                "num_devices": MULTI_D, "tol": 1e-8}
+P20_BEAM_OPTS = {"problem": "elasticity", "nx": BEAM[0], "ny": BEAM[1], "nz": BEAM[2],
+                 "solver": "mult", "smoother": "hybrid_jgs", "outer_solver": "pcg",
+                 "num_devices": MULTI_D, "comm": "halo", "device_format": "ell",
+                 "setup_type": "classical"}
+
+
+class P20Route:
+    """One route of phase 20, set up: `solve()` runs it to its end (timed),
+    `steps_of(res)` / `x_of(res)` read its step count and global x (a host
+    array), `run(k)` runs k steps (tol 0, the device profile's slope),
+    `mesh` is the mesh whose collectives it takes."""
+
+    def __init__(self, name, mesh, solve, run, x_of, steps_of=lambda r: r.iters,
+                 extra=lambda r: {}):
+        self.name, self.mesh, self.solve, self.run = name, mesh, solve, run
+        self.x_of, self.steps_of, self.extra = x_of, steps_of, extra
+
+
+def p20_routes(ctx, mesh, device):
+    """Phase 20's routes on `mesh` (8 shards: one process's, or 4 of each
+    worker's), from the shared inputs `ctx`, in P20_ROUTES' order, set up
+    one after the other (the 96^3 row-sharded hierarchies live while the
+    routes that share them run)."""
+    import torch
+
+    from amg_tpu_torch.parallel import build_dist_hierarchy, pad_vector, unpad_vector
+    from amg_tpu_torch.setup.hierarchy import HierarchyParams
+    from amg_tpu_torch.solve.cycles import CycleConfig
+    from amg_tpu_torch.solve.driver import cheby_setup, solve
+
+    hh, b_np = ctx["hh"], ctx["b"]
+    cfg = CycleConfig()
+
+    def dist(comm, dtype=torch.float64):
+        hier, info = build_dist_hierarchy(hh, HierarchyParams(dtype=dtype), mesh, comm=comm)
+        return hier, info, pad_vector(torch.from_numpy(b_np), info, mesh)
+
+    def glob(info):
+        return lambda res: unpad_vector(res.x, info, mesh).double().cpu().numpy()
+
+    # (a) comm "gspmd"
+    hier, info, b = dist("gspmd")
+    yield P20Route("gspmd", mesh, lambda: solve(hier, cfg, b, tol=1e-8, device=device),
+                   lambda k: solve(hier, cfg, b, tol=0.0, max_cycles=k, device=device),
+                   glob(info))
+    del hier
+    # (b)-(d) on the halo hierarchy: FULL async_multadd (phase 11's options,
+    # the port's generators seeded 0 in every process), mixed_solve, and the
+    # Chebyshev solver after cheby_setup by power
+    from amg_tpu_torch.solve.async_sim import AsyncConfig, async_solve
+    from amg_tpu_torch.solve.mixed import mixed_solve
+
+    hier, info, b = dist("halo")
+    acfg, add_cfg = AsyncConfig(**ctx["acfg"]), additive_cfg("multadd")
+    yield P20Route(
+        "async full", mesh,
+        lambda: async_solve(hier, add_cfg, acfg, b, seed=0, tol=1e-8, max_cycles=1000,
+                            device=device),
+        lambda k: async_solve(hier, add_cfg, acfg, b, seed=0, tol=0.0, max_cycles=k,
+                              device=device),
+        glob(info), extra=lambda r: {"history_end": r.history_list()[-1]})
+    hier32, _, _ = dist("halo", torch.float32)
+    A64 = hier.levels[0].A
+    yield P20Route("mixed", mesh,
+                   lambda: mixed_solve(hier32, A64, cfg, b, tol=1e-8, device=device),
+                   lambda k: mixed_solve(hier32, A64, cfg, b, tol=0.0, max_cycles=k,
+                                         device=device),
+                   glob(info))
+    del hier32, A64
+    coeffs = cheby_setup(hier, cfg, num_iters=20, method="power", device=device)
+    yield P20Route(
+        "cheby power", mesh,
+        lambda: solve(hier, cfg, b, tol=1e-8, accel="cheby", cheby_coeffs=coeffs,
+                      device=device),
+        lambda k: solve(hier, cfg, b, tol=0.0, max_cycles=k, accel="cheby",
+                        cheby_coeffs=coeffs, device=device),
+        glob(info), extra=lambda r: {"bounds": [coeffs.alpha, coeffs.beta]})
+    del hier
+    # (e) one-level async smoothing on the 27-point 96^3 plane halo
+    from amg_tpu_torch.parallel.dist import shard_smoother
+    from amg_tpu_torch.parallel.halo import make_halo_stencil
+    from amg_tpu_torch.problems.laplacian import laplacian_3d_27pt
+    from amg_tpu_torch.smooth.smoothers import (
+        SmootherType,
+        make_smoother_data,
+        smoother_data_from_arrays,
+    )
+    from amg_tpu_torch.solve.async_smooth import (
+        AsyncSmoothConfig,
+        async_smooth_solve,
+        block_neighbor_mask,
+    )
+    from amg_tpu_torch.sparse.stencil import StencilOperator
+
+    st = laplacian_3d_27pt(GENERIC_N).stencil
+    A = make_halo_stencil(StencilOperator(weights=st.weights.to(device), offsets=st.offsets,
+                                          grid_shape=st.grid_shape), mesh)
+    lv0 = hh.levels[0]
+    sm = smoother_data_from_arrays(make_smoother_data(lv0.A, SmootherType.L1_JACOBI,
+                                                      w=lv0.weight), torch.float64, device)
+    if mesh.world_size > 1:
+        sm = shard_smoother(sm, mesh)
+    scfg, nbr = AsyncSmoothConfig(num_blocks=MULTI_D), block_neighbor_mask(lv0.A, MULTI_D)
+    bs = mesh.shard_vector(torch.from_numpy(b_np))
+
+    def smooth_k(k):
+        return async_smooth_solve(A, sm, scfg, nbr, bs, tol=0.0, max_cycles=k, device=device,
+                                  mesh=mesh)
+
+    yield P20Route("async_smooth", mesh, lambda: smooth_k(P20_SMOOTH_STEPS), smooth_k,
+                   lambda r: mesh.gather(r.x).cpu().numpy(),
+                   extra=lambda r: {"history": r.history_list()})
+    del A, sm
+    # (f) the grid-mapped extended system: the runner's EXT branch, its
+    # set-up (hierarchy, mesh, b) by setup_experiment and its calls as
+    # solve_experiment makes them
+    from amg_tpu_torch.solve.accel import estimate_cycle_eigs
+    from amg_tpu_torch.solve.extended import (
+        build_sharded_extended_system,
+        ext_matvec,
+        ext_solve,
+    )
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import _make_vectors, setup_experiment
+
+    exp = setup_experiment(SolverOptions(**P20_EXT_OPTS), device)
+    o = exp.opts
+    ext = build_sharded_extended_system(exp.hh, exp.params, exp.grid_mesh, imbalance=o.imbal,
+                                        assign_policy=o.assign_procs,
+                                        assign_scalar=o.assign_procs_scalar)
+    A0 = exp.hier.levels[0].A
+    ecoeffs = estimate_cycle_eigs(
+        lambda op, u: op[0].inv_wdiag * ext_matvec(op[0], op[1], u), ext.offsets[-1],
+        exp.params.dtype, num_iters=o.cheby_power_iters, range_start=True, operand=(ext, A0),
+        device=device, mesh=ext.mesh)
+    be, xe = _make_vectors(o, exp.prob.n, exp.params.dtype, device)
+
+    def ext_k(k, tol=0.0):
+        return ext_solve(exp.hier, ext, be, xe, tol=tol, max_cycles=k, cheby_coeffs=ecoeffs,
+                         seed=o.seed, device=device)
+
+    yield P20Route("extended", exp.grid_mesh, lambda: ext_k(o.num_cycles, o.tol), ext_k,
+                   lambda r: r.x.cpu().numpy(),
+                   extra=lambda r: {"rel_res": float(r.rel_resnorm)})
+    del exp, ext
+    # (g) config4's options with hybrid JGS on the 157k beam (PCG)
+    from amg_tpu_torch.utils.runner import cycle_config
+
+    bo = SolverOptions(**P20_BEAM_OPTS)
+    bo.fixup()
+    hier, info = build_dist_hierarchy(ctx["beam_hh"], ctx["beam_params"], mesh, comm="halo")
+    bb = pad_vector(torch.from_numpy(ctx["beam_b"]), info, mesh)
+    bcfg = cycle_config(bo, ctx["beam_params"].smoother)
+    yield P20Route(
+        "hybrid_jgs beam", mesh,
+        lambda: solve(hier, bcfg, bb, tol=bo.tol, max_cycles=bo.num_cycles, outer="pcg",
+                      device=device),
+        lambda k: solve(hier, bcfg, bb, tol=0.0, max_cycles=k, outer="pcg", device=device),
+        glob(info))
+    del hier
+    # (h) 126^3 on the structured hierarchy through the generic cycle
+    from amg_tpu_torch.convert import hierarchy_from_arrays
+    from amg_tpu_torch.parallel import shard_structured_hierarchy
+
+    so = SolverOptions(**P20_STRUCT_OPTS)
+    so.fixup()
+    hier = shard_structured_hierarchy(
+        hierarchy_from_arrays(*ctx["struct_arrays"], dtype=torch.float64, device=device), mesh)
+    n = N_SIDE ** 3
+    bst = pad_vector(torch.from_numpy(np.random.default_rng(so.seed).random(n)), (n, n), mesh)
+    scfg2 = cycle_config(so, SmootherType(so.smoother))
+    yield P20Route("structured", mesh,
+                   lambda: solve(hier, scfg2, bst, tol=so.tol, device=device),
+                   lambda k: solve(hier, scfg2, bst, tol=0.0, max_cycles=k, device=device),
+                   glob((n, n)))
+
+
+def p20_measure(route):
+    """A set-up route run to its end, every kernel counter reset just before
+    and read just after, on the host clock and with the bytes its processes
+    exchanged; then its device time a step under the profiler (the slope
+    between 2 and 4 steps). Returns (record, global x)."""
+    import torch
+
+    torch.cuda.synchronize()
+    sent0 = route.mesh.sent_bytes
+    reset_counts()
+    t0 = time.perf_counter()
+    res = route.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    sent = route.mesh.sent_bytes - sent0
+    steps = int(route.steps_of(res))
+    busy, events, _ = device_per_cycle(route.run, 2, 4)
+    k = max(steps, 1)
+    rec = {"steps": steps, "solve_s": solve_s, "host_ms": solve_s / k * 1e3,
+           "device_ms": busy, "events": events, "sent_bytes_per_step": sent / k,
+           "counts": counts, **route.extra(res)}
+    return rec, route.x_of(res)
+
+
+def p20_inputs(keep, tmp, device):
+    """The parent's half before the workers start: the shared host inputs
+    written to `tmp`, and the one-process 8-shard run of every route that
+    phases 18 / 19 did not run (their x to `tmp` as .npy). Returns the
+    one-process records."""
+    import pickle
+
+    import torch
+
+    from amg_tpu_torch.setup.hierarchy import build_host_hierarchy
+    from amg_tpu_torch.utils.config import SolverOptions
+    from amg_tpu_torch.utils.runner import build_problem, hierarchy_params, setup_experiment
+
+    t0 = time.perf_counter()
+    acfg = keep["async_acfg"]
+    ctx = {"hh": keep["hh"], "b": keep["b"],
+           "acfg": {f: getattr(acfg, f) for f in acfg.__dataclass_fields__}}
+    # the beam's host hierarchy (the runner's sharded setup builds it so,
+    # and its b as the runner makes it from the beam's load)
+    opts = SolverOptions(**P20_BEAM_OPTS)
+    opts.fixup()
+    prob = build_problem(opts)
+    params = hierarchy_params(opts)
+    t1 = time.perf_counter()
+    beam_hh = build_host_hierarchy(prob.A, params)
+    rhs = np.asarray(prob.rhs)
+    ctx.update(beam_hh=beam_hh, beam_params=params, beam_b=rhs / np.linalg.norm(rhs))
+    log(f"  the beam's host hierarchy ({prob.n} dofs, levels "
+        f"{[lv.A.n_rows for lv in beam_hh.levels]}): {time.perf_counter() - t1:.2f} s")
+    # the runner's structured setup at 126^3: its host arrays (phase 17's,
+    # whose options differ only in num_devices)
+    if "struct arrays" in keep:
+        ctx["struct_arrays"] = keep["struct arrays"]
+    else:
+        exp = setup_experiment(SolverOptions(**dict(P20_STRUCT_OPTS, only_setup=True)), "cpu")
+        ctx["struct_arrays"] = exp.hh.arrays
+        del exp
+    del prob
+    with open(os.path.join(tmp, "ctx.pkl"), "wb") as f:
+        pickle.dump(ctx, f, protocol=pickle.HIGHEST_PROTOCOL)
+    log(f"  shared inputs written in {time.perf_counter() - t0:.1f} s")
+    from amg_tpu_torch.parallel import make_row_mesh
+
+    mesh = make_row_mesh(MULTI_D, device)
+    one = {}
+    earlier = {"gspmd": "gspmd x", "extended": "ext x"}  # phases 18 and 19's runs
+    for route in p20_routes(ctx, mesh, device):
+        name = route.name
+        t1 = time.perf_counter()
+        rec, x = p20_measure(route)
+        del route
+        torch.cuda.empty_cache()
+        if earlier.get(name) in keep:
+            # the workers are held to the earlier phase's x; this run of the
+            # same options must equal it
+            want = keep[earlier[name]]
+            rec["dx_earlier_phase"] = float(np.linalg.norm(x - want) / np.linalg.norm(want))
+            x = want
+        np.save(os.path.join(tmp, f"x {name}.npy"), x)
+        one[name] = rec
+        log(f"  one process, 8 shards, {name}: {rec['steps']} steps; host "
+            f"{rec['host_ms']:.3f} ms, device {rec['device_ms']:.3f} ms, "
+            f"{rec['events']:.1f} events a step; {time.perf_counter() - t1:.1f} s"
+            + (f"; |x - x_phase|/|x_phase| {rec['dx_earlier_phase']:.3e}"
+               if "dx_earlier_phase" in rec else ""))
+    del ctx
+    torch.cuda.empty_cache()
+    return one
+
+
+def p20_worker(rank, world, port, backend, tmp) -> int:
+    """One worker process of phase 20: joins the group, runs every route on
+    its 4 of the 8 shards, compares the global x with the one-process run's
+    and prints one "P20 <json>" line."""
+    import pickle
+
+    import torch
+
+    from amg_tpu_torch.parallel import init_multihost, make_row_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_cards = torch.cuda.device_count()
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    init_multihost(f"localhost:{port}", world, rank, device=device, backend=backend)
+    mesh = make_row_mesh(MULTI_D, device)
+    log(f"worker {rank} of {world}: backend {torch.distributed.get_backend()}, device "
+        f"{device} ({torch.cuda.get_device_name(device)}, {n_cards} visible), shards "
+        f"{mesh.first_shard}-{mesh.first_shard + mesh.local_devices - 1}, host-staged "
+        f"collectives {mesh.staged}")
+    with open(os.path.join(tmp, "ctx.pkl"), "rb") as f:
+        ctx = pickle.load(f)
+    out = {"rank": rank, "device": str(device), "backend": torch.distributed.get_backend(),
+           "staged": mesh.staged, "routes": {}}
+    t0 = time.perf_counter()
+    for route in p20_routes(ctx, mesh, device):
+        name = route.name
+        log(f"worker {rank} {name}: set up at {time.perf_counter() - t0:.1f} s")
+        rec, x = p20_measure(route)
+        del route
+        torch.cuda.empty_cache()
+        want = np.load(os.path.join(tmp, f"x {name}.npy"))
+        rec["dx"] = float(np.linalg.norm(x - want) / np.linalg.norm(want))
+        out["routes"][name] = rec
+        log(f"worker {rank} {name}: {rec['steps']} steps, |x - x_1|/|x_1| {rec['dx']:.3e}, "
+            f"solved at {time.perf_counter() - t0:.1f} s")
+    torch.distributed.destroy_process_group()
+    print("P20 " + json.dumps(out), flush=True)
+    return 0
+
+
+def routes_phase(device, keep):
+    """Phase 20 on `device`: the one-process runs, then P20_WORKERS workers
+    of this script on the card(s); each route's steps, x and counters
+    against the one-process run. Returns (record, failures)."""
+    import socket
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    fails, rec = [], {}
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= P20_WORKERS else "gloo"
+    log(f"routes across processes: {P20_WORKERS} workers, backend {backend} ("
+        f"{n_cards} card(s) visible: " + ("one card a process" if backend == "nccl" else
+                                          "both processes on cuda:0, host-staged gloo") + ")")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        one = p20_inputs(keep, tmp, device)
+        rec["one process"] = one
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        # the workers share the host's cores; the rendezvous and gloo stay on
+        # the loopback interface
+        threads = str(max(1, (os.cpu_count() or 2) // P20_WORKERS))
+        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo",
+                   OMP_NUM_THREADS=threads, OPENBLAS_NUM_THREADS=threads,
+                   MKL_NUM_THREADS=threads)
+        logs = [open(os.path.join(tmp, f"worker {r}.log"), "w+") for r in range(P20_WORKERS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p20-worker",
+                                   str(r), str(P20_WORKERS), str(port), backend, tmp],
+                                  stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+                 for r in range(P20_WORKERS)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            fails.append("phase 20: a worker did not finish within 600 s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rec["workers_s"] = time.perf_counter() - t0
+        results = []
+        for r, f in enumerate(logs):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            for ln in text.splitlines():
+                if ln.startswith("P20 "):
+                    results.append(json.loads(ln[4:]))
+                else:
+                    log(f"  [worker {r}] {ln}")
+            if procs[r].returncode != 0:
+                fails.append(f"phase 20: worker {r} exited {procs[r].returncode}")
+    if len(results) != P20_WORKERS:
+        fails.append("phase 20: not every worker printed its result")
+        return rec, fails
+    rec["workers"] = results
+    for name in P20_ROUTES:
+        o = one[name]
+        # PCG's dots are all-reduced: the Krylov band there
+        band = 1e-10 if name == "hybrid_jgs beam" else 1e-12
+        for w in results:
+            r = w["routes"][name]
+            log(f"{name} across {P20_WORKERS} processes ({w['backend']}, {w['device']}, staged "
+                f"{w['staged']}), worker {w['rank']}: steps {r['steps']} (one process "
+                f"{o['steps']}), |x - x_1|/|x_1| {r['dx']:.3e}; host {r['host_ms']:.3f} ms, "
+                f"device {r['device_ms']:.3f} ms, {r['events']:.1f} events a step (one process "
+                f"{o['host_ms']:.3f} / {o['device_ms']:.3f}"
+                f" ms); {r['sent_bytes_per_step']:.0f} bytes sent to the other process a step; "
+                f"launches {r['counts']}")
+            if r["steps"] != o["steps"] or not r["dx"] <= band:
+                fails.append(f"phase 20 {name}: worker {w['rank']} not the one-process steps "
+                             f"or x within {band}")
+            if any(r["counts"].values()):
+                fails.append(f"phase 20 {name}: a kernel was launched {r['counts']}")
+            if name == "cheby power" and not np.allclose(r["bounds"], o["bounds"], rtol=1e-12,
+                                                         atol=0):
+                fails.append("phase 20 cheby power: not the one-process bounds")
+            if name == "async_smooth" and not np.allclose(r["history"], o["history"],
+                                                          rtol=0, atol=1e-12):
+                fails.append("phase 20 async_smooth: not the one-process history")
+        if any(o["counts"].values()):
+            fails.append(f"phase 20 {name}: a kernel was launched in one process {o['counts']}")
+        if not o.get("dx_earlier_phase", 0.0) <= 1e-15:
+            fails.append(f"phase 20 {name}: the one-process run is not phase 18's / 19's")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"routes phase: {rec['phase_s']:.1f} s (workers {rec['workers_s']:.1f} s)")
     return rec, fails
 
 
@@ -2972,7 +3420,7 @@ def main() -> int:
         log("generic AMG path FAILED:", fgen)
         return 1
     log("the drivers (run_experiment, the CLI):")
-    drv, fdrv = drivers_phase(device)
+    drv, fdrv = drivers_phase(device, keep)
     if fdrv:
         log("drivers phase FAILED:", fdrv)
         return 1
@@ -2986,6 +3434,12 @@ def main() -> int:
     if fgrid:
         log("grid phase FAILED:", fgrid)
         return 1
+    log("the routes across processes:")
+    routes, froutes = routes_phase(device, keep)
+    if froutes:
+        log("routes phase FAILED:", froutes)
+        return 1
+    del keep
 
     cycle = cycle_phase(hier32, cfg, b32, device)
     timings = timing_phase(hier32, device, counts, res.iters)
@@ -3052,6 +3506,7 @@ def main() -> int:
     log(json.dumps({"drivers": drv}))
     log(json.dumps({"multidevice": multi}))
     log(json.dumps({"grid": grid}))
+    log(json.dumps({"routes": routes}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3061,4 +3516,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--p20-worker"]:
+        rank, world, port = (int(a) for a in sys.argv[2:5])
+        sys.exit(p20_worker(rank, world, port, sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -368,36 +368,59 @@ def test_init_multihost_picks_nccl_for_cuda_and_gloo_for_the_cpu():
 
 
 def test_the_one_process_routes_raise_across_processes():
-    """comm="gspmd", the sharded structured hierarchy, the block smoothers
-    and the grid-mapped extended system have no route across processes
-    (ROADMAP item 11c); the halo route does."""
-    from amg_tpu_torch.parallel.dist import RowMesh, build_dist_hierarchy, \
-        shard_structured_hierarchy
-    from amg_tpu_torch.problems.laplacian import laplacian_2d_5pt
+    """The routes that once raised across processes (comm="gspmd", the
+    block smoothers, the sharded structured hierarchy, the grid-mapped
+    extended system) now build for the first of two processes without a
+    collective and keep only its shards' part; nothing raises for them.
+    (tests/test_torch_multiprocess.py runs them across two processes.)"""
+    from amg_tpu_torch.parallel.dist import (
+        GatheredOperator,
+        RowMesh,
+        RowShardedMatrix,
+        build_dist_hierarchy,
+        shard_structured_hierarchy,
+    )
+    from amg_tpu_torch.parallel.halo import HaloStencilOperator, SlabTransfer
+    from amg_tpu_torch.problems.laplacian import laplacian_2d_5pt, laplacian_3d_27pt
     from amg_tpu_torch.setup.hierarchy import HierarchyParams, build_host_hierarchy
     from amg_tpu_torch.setup.structured import build_structured_hierarchy
-    from amg_tpu_torch.smooth.smoothers import SmootherType
+    from amg_tpu_torch.smooth.smoothers import ShardedBlockInverse, SmootherType
+    from amg_tpu_torch.solve.extended import build_sharded_extended_system
 
-    # the first of two processes: no collective runs while building
+    # the first of two processes: no collective runs while building (the
+    # mesh has no process group)
     mesh = RowMesh(n_devices=8, device=torch.device("cpu"), rank=0, world_size=2)
     prob = laplacian_2d_5pt(16)
     params = HierarchyParams(keep_stencil_fine=False)
     hh = build_host_hierarchy(prob.A, params)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        build_dist_hierarchy(hh, params, mesh, comm="gspmd")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        build_dist_hierarchy(hh, HierarchyParams(keep_stencil_fine=False,
-                                                 smoother=SmootherType.HYBRID_JGS),
-                             mesh, comm="halo")
-    _, hier = build_structured_hierarchy(prob.stencil, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        shard_structured_hierarchy(hier, mesh)
+    hier_g, info = build_dist_hierarchy(hh, params, mesh, comm="gspmd")
+    for lv in hier_g.levels:  # each level's first half of the rows
+        assert isinstance(lv.A, RowShardedMatrix)
+        assert lv.A.local.n_rows == lv.A.shape[0] // 2
+        assert lv.sm.scale.shape == (lv.A.shape[0] // 2,)
+    assert isinstance(hier_g.coarse_Ainv, GatheredOperator)
+    hier_j, _ = build_dist_hierarchy(hh, HierarchyParams(keep_stencil_fine=False,
+                                                         smoother=SmootherType.HYBRID_JGS),
+                                     mesh, comm="halo")
+    sm0 = hier_j.levels[0].sm
+    n0 = hier_j.levels[0].A.shape[0]
+    assert isinstance(sm0.block_inv, ShardedBlockInverse)
+    # the 128-row blocks of the global rows that meet rows [0, n0 / 2)
+    assert sm0.block_inv.row0 == 0
+    assert sm0.block_inv.blocks.shape[0] == -(-(n0 // 2) // 128)
+    _, hier_s = build_structured_hierarchy(laplacian_3d_27pt(16).stencil,
+                                           max_coarse_size=8, device="cpu")
+    hier_s = shard_structured_hierarchy(hier_s, mesh)
+    lv0, lv1, lv2 = hier_s.levels
+    assert isinstance(lv0.A, HaloStencilOperator) and isinstance(lv1.A, HaloStencilOperator)
+    assert isinstance(lv0.R, SlabTransfer) and isinstance(lv0.P, SlabTransfer)
+    assert isinstance(lv1.R, GatheredOperator) and isinstance(lv2.A, GatheredOperator)
+    assert lv0.sm.scale.shape == (16 ** 3 // 2,)
     hier_h, info = build_dist_hierarchy(hh, params, mesh, comm="halo")
     assert hier_h.levels[0].A.vals.shape[0] == 4  # its own 4 shards
     assert hier_h.levels[0].sm.scale.shape == (info[1] // 2,)
     with pytest.raises(ValueError, match="unknown comm"):
         build_dist_hierarchy(hh, params, mesh, comm="mpi")
-    from amg_tpu_torch.solve.extended import build_sharded_extended_system
-
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        build_sharded_extended_system(hh, params, mesh)
+    ext = build_sharded_extended_system(hh, params, mesh)
+    assert ext.AA.vals.shape[0] == 4 and ext.mesh is mesh
+    assert ext.inv_wdiag.shape == (ext.offsets[-1] // 2,)

@@ -7,6 +7,7 @@ operator carries across; and the runner's distributed one-level async
 smoothing replays the reference's run (its draws, tests/torch_parity.py)
 step for step."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,7 +122,32 @@ def test_runner_async_smooth_distributed_replays_the_reference():
 
     kw = dict(problem="7pt", n=16, solver="async_smooth", num_devices=8, tol=1e-4,
               num_cycles=4000)
-    want = r_run(RSolverOptions(**kw))
+    # the reference's jitted loop takes its halo operator as a pytree whose
+    # metadata holds arrays, so a second caller in the same process (its
+    # own tests/test_halo.py runs this path) meets a cached entry whose
+    # metadata it cannot compare: run it with no cached trace and leave none
+    jax.clear_caches()
+    try:
+        want = r_run(RSolverOptions(**kw))
+    finally:
+        jax.clear_caches()
     got = run_experiment(SolverOptions(**kw), device="cpu", draws=JaxSmoothDraws(0))
     assert got.cycles == want.cycles and got.rel_resnorm <= 1e-4
     np.testing.assert_allclose(got.history, want.history, rtol=1e-10, atol=1e-14)
+
+
+def test_the_halo_form_of_an_interleaved_dia_operator():
+    """The plane halo of a variable stencil whose taps reach further than
+    one along its non-leading axes (the interleaved elasticity operator:
+    99 diagonals, reach 5 along the component axis) equals its global
+    matvec, each shard padded by the taps' reach on every axis."""
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.structured import csr_to_dia_stencil
+
+    prob = elasticity_beam(15, 4, 4, bc="identity")
+    vs = csr_to_dia_stencil(prob.A, prob.grid_shape)
+    assert max(abs(o[-1]) for o in vs.offsets) > 1 and prob.grid_shape[0] % 8 == 0
+    mesh = make_row_mesh(8, "cpu")
+    x = torch.from_numpy(np.random.default_rng(5).random(prob.n))
+    got = phalo.make_halo_stencil(vs, mesh) @ x
+    torch.testing.assert_close(got, vs @ x, rtol=1e-13, atol=1e-13)

@@ -8,8 +8,13 @@ arithmetic, so the 2-process V-cycle run equals the 1-process one to 1e-14
 (its norms are all-reduced in another order), and the PCG, whose dots are
 all-reduced too, to 1e-10. The grid-parallel async solves gather the
 shards' partials and sum them in shard order in every process, so 2
-processes x 4 shards equal 1 x 8 bit for bit. Spawns real processes (one
-round of each, shared by the tests): the collectives cross process
+processes x 4 shards equal 1 x 8 bit for bit. Every other route (the
+worker's `route_cases`, one test each) runs in both rounds, and the
+one-process round also runs its options on one device: 1 x 8 is held
+against that single-device iteration (what GSPMD computes), 2 x 4 against
+1 x 8, with the same count and x to 1e-14 where only the all-reduced norms
+differ and 1e-10 where a Krylov method's dots do. Spawns real processes
+(one round of each, shared by the tests): the collectives cross process
 memory."""
 
 import json
@@ -99,3 +104,117 @@ def test_the_grid_solve_on_two_processes_equals_one(rounds):
         assert want["history"][-1] <= 2e-8
         for r in two:
             assert r["grid"][name] == want, name
+
+
+def _close(got, want, band, what):
+    assert got["cycles"] == want["cycles"], what
+    np.testing.assert_allclose(got["x"], want["x"], rtol=0,
+                               atol=band * np.abs(want["x"]).max(), err_msg=what)
+
+
+def _route(rounds, name, band, single_band=None, history_band=None):
+    """The route's 1 x 8 run against its single-device run (single_band,
+    None: not compared) and each process's 2 x 4 run against 1 x 8: the
+    count, x within `band`, the history within history_band (default
+    band)."""
+    one, two = rounds
+    r1 = one["routes"][name]
+    if single_band is not None:
+        _close(r1, r1["single"], single_band, name + " 1 x 8 against one device")
+    hb = max(band if history_band is None else history_band, 1e-14)
+    for r in two:
+        _close(r["routes"][name], r1, band, name + " 2 x 4 against 1 x 8")
+        # the relative residuals: the residual's roundoff over ||r0|| where
+        # they fall below 1, relative where they grow
+        np.testing.assert_allclose(r["routes"][name]["history"], r1["history"], rtol=hb,
+                                   atol=hb, err_msg=name)
+    return r1
+
+
+def test_gspmd_across_processes(rounds):
+    """(a) config7's options with comm "gspmd": the golden's cycles and
+    history (the reference's halo run computes the same iteration), one
+    device's x, and 2 x 4 equal to 1 x 8 (the operand all-gathered)."""
+    r1 = _route(rounds, "gspmd", 1e-14, single_band=1e-12)
+    with open(os.path.join(REPO, "tests", "golden", "config7_halo_dist_mult.json")) as f:
+        g = json.load(f)
+    assert r1["cycles"] == g["cycles"]
+    np.testing.assert_allclose(r1["history"], g["history"], rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("kind", ["full", "semi"])
+def test_async_additive_on_the_row_mesh_across_processes(rounds, kind):
+    """(b) async_multadd -no_grid_parallel on the row mesh: the same steps
+    as one device under the same generators (FULL's per-row draws taken for
+    the whole vector, each process its rows)."""
+    r1 = _route(rounds, f"async {kind}", 1e-14, single_band=1e-12)
+    assert r1["history"][-1] <= 1e-8
+
+
+def test_mixed_precision_on_the_row_mesh_across_processes(rounds):
+    """(c) -mixed_precision on the row mesh (mixed_solve's norms reduced
+    over the mesh)."""
+    _route(rounds, "mixed", 1e-14, single_band=1e-12)
+
+
+@pytest.mark.parametrize("method,band", [("power", 1e-14), ("lobpcg", 1e-10),
+                                         ("lanczos", 1e-10)])
+def test_chebyshev_bounds_across_processes(rounds, method, band):
+    """(d) the Chebyshev solver after cheby_setup by each estimator: each
+    process's rows of the one global start draw, the dots reduced over the
+    mesh (LOBPCG's Gram products all-reduced, its QR on the gathered
+    block): the single-device bounds and count."""
+    one, two = rounds
+    r1 = _route(rounds, f"cheby {method}", band, single_band=1e-12)
+    np.testing.assert_allclose(r1["bounds"], r1["single"]["bounds"], rtol=1e-12)
+    for r in two:
+        np.testing.assert_allclose(r["routes"][f"cheby {method}"]["bounds"], r1["bounds"],
+                                   rtol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["async_smooth stencil", "async_smooth csr"])
+def test_async_smoothing_across_processes(rounds, name):
+    """(e) one-level async smoothing over 8 shards (the plane exchange of
+    the 7-point 16^3 stencil, a HaloELL of vardifconv 8^3): the blocks of
+    the global rows, their residual norms all-reduced."""
+    _route(rounds, name, 1e-14, single_band=1e-12)
+
+
+def test_the_grid_mapped_extended_system_across_processes(rounds):
+    """(f) the reference worker's grid-mapped extended system (5-point
+    16^2): 2 x 4 equal to 1 x 8 (U row-sharded, the chains reading the whole
+    fine vector); 1 x 8 against the unsharded explicit system, whose
+    power-bound start vectors are shorter: the count within one and x
+    within the solution's accuracy."""
+    one, _ = rounds
+    r1 = _route(rounds, "extended", 1e-14)
+    s = r1["single"]
+    assert abs(r1["cycles"] - s["cycles"]) <= 1
+    assert r1["history"][-1] <= 1e-8 and s["history"][-1] <= 1e-8
+    np.testing.assert_allclose(r1["x"], s["x"], rtol=0, atol=1e-6 * np.abs(s["x"]).max())
+
+
+@pytest.mark.parametrize("smoother", ["hybrid_jgs", "gs"])
+def test_block_smoothers_across_processes(rounds, smoother):
+    """(g) config4's beam (PCG) with the block smoothers: the blocks cut
+    from the global rows, the one at the process boundary applied whole in
+    both processes."""
+    _route(rounds, f"block {smoother}", 1e-10, single_band=1e-9)
+
+
+@pytest.mark.parametrize("name,band,single_band,history_band", [
+    ("structured", 1e-14, 0.0, None), ("structured dia", 1e-10, 1e-9, 5e-2)])
+def test_the_structured_hierarchy_across_processes(rounds, name, band, single_band,
+                                                   history_band):
+    """(h) -hierarchy structured -num_devices 8: on the 27-point 16^3 grid
+    the plane halo on the plane-split levels and their slab transfers, the
+    gathered form below (1 x 8 is the single-device iteration itself); on
+    the identity-BC elasticity beam (float64 DIA levels under PCG) the
+    plane halo of an operator reaching 5 along its component axis, whose
+    masked transfer to the replicated coarse level takes the gathered form
+    (1 x 8 takes the plain DIA form where one device takes K5's plain
+    version: another summation order). PCG on that beam moves its
+    intermediate residual norms by up to 2% under a change of summation
+    order (1 x 8 against one device: 1.1%) while its count and x hold, so
+    its history is held to 5e-2."""
+    _route(rounds, name, band, single_band=single_band, history_band=history_band)
