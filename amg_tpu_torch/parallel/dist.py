@@ -13,14 +13,17 @@ so that the cycles, smoothers and solvers run on it unchanged:
 
   * one process (world_size 1): the stacked block is the whole padded
     vector; the halo operators (`parallel.spcomm`, `parallel.halo`) move
-    their boundary segments between shards by tensor indexing on the device,
-    and dots and norms are the plain ones;
+    their boundary segments between shards by tensor indexing on the device;
   * several processes (`parallel.multihost.init_multihost`): the halo
     exchange crosses processes through the process group (NCCL between
     cards, gloo between CPU processes or, host-staged, between processes
-    that share a card), dots and norms are all-reduced and the replicated
-    coarse inverse applies to the all-gathered coarse vector
-    (`GatheredOperator`). Every collective is a `RowMesh` method.
+    that share a card), and the replicated coarse inverse applies to the
+    all-gathered coarse vector (`GatheredOperator`). Every collective is a
+    `RowMesh` method.
+
+Dots and norms (`RowMesh.dot`, `norm`) sum the D shards' own dots in shard
+order in any process count, so a Krylov method's iterates depend on D and
+not on how many processes hold the shards.
 
 comm="gspmd" (the reference lets XLA insert collectives into plain sharded
 ELL/BSR operators) is, in one process, the padded single-device computation,
@@ -29,8 +32,12 @@ and all-gathers its operand (`RowShardedMatrix`, `row_shard`). The
 structured hierarchy likewise (`shard_structured_hierarchy`): in one
 process the hierarchy itself; across processes the plane halo where a
 level's leading axis splits over the shards, else the gathered form
-(`GatheredOperator`). A block smoother's blocks stay those of the global
-rows (`shard_smoother`).
+(`GatheredOperator`): a plane-split level in the global operator's own
+expression (`parallel.halo.make_structured_halo`). A block smoother's
+blocks stay those of the global rows, each process applying all of them to
+the gathered residual (`shard_smoother`). So every route across processes
+computes what one process holding the D shards computes, bit for bit, but
+LOBPCG's all-reduced Gram products.
 
 Grid (level) parallelism lays its levels over the same mesh: whole shards
 per level group (`parallel.grid`), or, for the extended system, each level
@@ -160,12 +167,16 @@ class RowMesh:
             t.copy_(w)
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self.all_reduce(torch.dot(a, b))
+        """a . b of two row-sharded vectors: each shard's dot (one shape and
+        one kernel, whatever the process count), the D of them gathered in
+        shard order and summed, so that the result depends on D alone: what
+        one process holding all D shards computes, bit for bit."""
+        L = self.local_devices
+        parts = torch.stack([torch.dot(u, v) for u, v in zip(a.view(L, -1), b.view(L, -1))])
+        return self.gather(parts).sum()
 
     def norm(self, x: torch.Tensor) -> torch.Tensor:
-        if self.world_size == 1:
-            return torch.linalg.norm(x)
-        return torch.sqrt(self.all_reduce(torch.dot(x, x)))
+        return torch.sqrt(self.dot(x, x))
 
 
 def make_row_mesh(n_devices: Optional[int] = None, device=None, group=None) -> RowMesh:
@@ -279,20 +290,16 @@ def row_shard(op, mesh: RowMesh):
 
 def shard_smoother(sm, mesh: RowMesh):
     """This process's part of a level's global smoother state: its rows of
-    the scales and, for a block smoother, the block inverses that meet its
-    rows (`ShardedBlockInverse`: the blocks stay those of the global rows,
-    so a block that straddles two processes is applied whole in both)."""
+    the scales and, for a block smoother, the level's block inverses with
+    its rows (`ShardedBlockInverse`: every process applies all the blocks
+    of the global rows to the gathered residual, as one process does, and
+    keeps its rows)."""
     from amg_tpu_torch.smooth.smoothers import ShardedBlockInverse
 
     rows = mesh.local_rows(sm.scale.shape[0])
 
     def blocks(inv):
-        if inv is None:
-            return None
-        bs = inv.shape[1]
-        b0, b1 = rows.start // bs, -(-rows.stop // bs)
-        return ShardedBlockInverse(blocks=inv[b0:b1].clone(), row0=b0 * bs, rows=rows,
-                                   mesh=mesh)
+        return None if inv is None else ShardedBlockInverse(blocks=inv, rows=rows, mesh=mesh)
 
     return sm._replace(scale=sm.scale[rows].clone(), inv_wscale=sm.inv_wscale[rows].clone(),
                        block_inv=blocks(sm.block_inv), block_inv_bwd=blocks(sm.block_inv_bwd))
@@ -511,13 +518,15 @@ def structured_layout(A, mesh: RowMesh) -> str:
 
 def shard_structured_operator(A, mesh: RowMesh):
     """This process's form of a structured level's operator across
-    processes (`structured_layout`): the plane-halo operator, the gathered
-    form, or the operator itself where the level is replicated."""
-    from amg_tpu_torch.parallel.halo import make_halo_stencil
+    processes (`structured_layout`): the plane-halo operator in the global
+    operator's expression (`parallel.halo.make_structured_halo`: its rows
+    bit for bit those of one process), the gathered form, or the operator
+    itself where the level is replicated."""
+    from amg_tpu_torch.parallel.halo import make_structured_halo
 
     layout = structured_layout(A, mesh)
     if layout == "planes":
-        return make_halo_stencil(A, mesh)
+        return make_structured_halo(A, mesh)
     return GatheredOperator(A, mesh) if layout == "rows" else A
 
 

@@ -7,10 +7,21 @@ the mesh's D shards; each shard's matvec needs one boundary plane from each
 neighbour, which the exchange moves: within one process a shift of the
 stacked slabs' edge planes over the shard axis, across processes a
 point-to-point send of the edge planes of each process's first and last
-shard. Interior taps (offset 0 on the leading axis) are summed first, then
-the taps that reach up and down, over the haloed slab, in the reference's
-order. The result is the single-device stencil matvec (the zero planes at
-the global ends are the operator's zero-Dirichlet truncation).
+shard. The result is the single-device stencil matvec (the zero planes at
+the global ends are the operator's zero-Dirichlet truncation). Two entry
+points sum the taps in two orders:
+
+  * `halo_stencil_matvec` / `make_halo_stencil`, the runner's halo routes
+    (one-level async smoothing): the reference's halo order, interior taps
+    (offset 0 on the leading axis) first, then the taps that reach up, then
+    those that reach down;
+  * `structured_halo_matvec` / `make_structured_halo`, the structured
+    hierarchy's plane-split levels across processes
+    (`parallel.dist.shard_structured_operator`): the global operator's own
+    expression over the haloed slab (every tap in list order, as
+    `sparse.stencil.tap_sum` sums a StencilOperator's and a
+    VarStencilOperator's), so that a process computes its rows of A @ x
+    bit for bit, as one process holding the whole level does.
 """
 
 from __future__ import annotations
@@ -23,9 +34,10 @@ from amg_tpu_torch.parallel.dist import RowMesh
 
 
 def _apply_taps(grid, coeffs, offsets, tap_ids, zshift, out_shape):
-    """Sum coeff[t] * shift(grid, offset_t) over the given taps, for every
-    shard at once: grid (L, nz_in, *rest) is the stacked slabs (with their
-    halo planes where zshift is 1), out_shape (nzl, *rest) one shard's."""
+    """Sum coeff[t] * shift(grid, offset_t) over the given taps in their
+    order, from zeros, for every shard at once: grid (L, nz_in, *rest) is
+    the stacked slabs (with their halo planes where zshift is 1), out_shape
+    (nzl, *rest) one shard's."""
     nd = len(out_shape)
     nz = out_shape[0]
     # zero padding of the non-leading grid axes by the taps' reach along
@@ -79,38 +91,75 @@ def _local_coeffs(A, mesh: RowMesh):
     return A.weights.to(mesh.device)
 
 
+def _plane_split(A, mesh: RowMesh):
+    """(local shape, trace): one shard's (nzl, *rest) block of A's grid, and
+    the bytes a matvec's exchange ships (the mean a shard: two planes,
+    less at the ends) logged to the mesh's open comm_trace. Raises where the
+    leading axis does not divide into the shards or a tap reaches further
+    than one plane along it."""
+    gs = A.grid_shape
+    D = mesh.n_devices
+    if gs[0] % D:
+        raise ValueError(f"leading grid axis {gs[0]} does not divide into {D} shards")
+    if any(abs(o[0]) > 1 for o in A.offsets):
+        raise ValueError("the halo stencil exchanges one plane: reach 1 along the leading axis")
+    plane = int(np.prod(gs[1:]))
+
+    def trace(x):
+        if mesh.trace is not None:
+            mesh.trace.append(int(round(2 * (D - 1) * plane * x.element_size() / D)))
+
+    return (gs[0] // D,) + tuple(gs[1:]), trace
+
+
+def _haloed(x, mesh: RowMesh, local_shape):
+    """(g, gh): this process's shards of x, (L, nzl, *rest), and the same
+    with each shard's neighbour planes, (L, nzl + 2, *rest)."""
+    g = x.view((mesh.local_devices,) + tuple(local_shape))
+    from_prev, from_next = _edge_planes(g, mesh)
+    return g, torch.cat([from_prev, g, from_next], 1)
+
+
 def halo_stencil_matvec(A, mesh: RowMesh):
     """(fn, coeffs): fn(x, coeffs) = A @ x over the mesh with the explicit
-    plane exchange, x this process's rows of the flat grid vector.
+    plane exchange, x this process's rows of the flat grid vector, the taps
+    summed in the reference's halo order (interior, up, down).
 
     A is a StencilOperator (constant weights) or VarStencilOperator whose
     leading grid axis divides into the mesh's shards, with reach 1 along
     it."""
-    gs = A.grid_shape
-    D, L = mesh.n_devices, mesh.local_devices
-    if gs[0] % D:
-        raise ValueError(f"leading grid axis {gs[0]} does not divide into {D} shards")
+    local_shape, trace = _plane_split(A, mesh)
     offsets = A.offsets
-    if any(abs(o[0]) > 1 for o in offsets):
-        raise ValueError("the halo stencil exchanges one plane: reach 1 along the leading axis")
     interior = tuple(t for t, o in enumerate(offsets) if o[0] == 0)
     up = tuple(t for t, o in enumerate(offsets) if o[0] == -1)
     dn = tuple(t for t, o in enumerate(offsets) if o[0] == +1)
-    local_shape = (gs[0] // D,) + tuple(gs[1:])
-    plane_bytes = int(np.prod(gs[1:]))
 
     def fn(x, coeffs):
-        if mesh.trace is not None:
-            # the mean bytes a shard ships: two planes, less at the ends
-            mesh.trace.append(int(round(2 * (D - 1) * plane_bytes * x.element_size() / D)))
-        g = x.view((L,) + local_shape)
-        from_prev, from_next = _edge_planes(g, mesh)
+        trace(x)
+        g, gh = _haloed(x, mesh, local_shape)
         y = _apply_taps(g, coeffs, offsets, interior, 0, local_shape)
-        gh = torch.cat([from_prev, g, from_next], 1)
         for ids in (up, dn):
             if ids:
                 y = y + _apply_taps(gh, coeffs, offsets, ids, 1, local_shape)
         return y.reshape(-1)
+
+    return fn, _local_coeffs(A, mesh)
+
+
+def structured_halo_matvec(A, mesh: RowMesh):
+    """(fn, coeffs): fn(x, coeffs) = A @ x over the mesh with the explicit
+    plane exchange, in the global operator's own expression
+    (`sparse.stencil.tap_sum`: all taps in list order from zeros) over each
+    shard's haloed slab, so that each row is what the global operator
+    computes for it. Same arguments as `halo_stencil_matvec`."""
+    local_shape, trace = _plane_split(A, mesh)
+    offsets = A.offsets
+    taps = range(len(offsets))
+
+    def fn(x, coeffs):
+        trace(x)
+        _, gh = _haloed(x, mesh, local_shape)
+        return _apply_taps(gh, coeffs, offsets, taps, 1, local_shape).reshape(-1)
 
     return fn, _local_coeffs(A, mesh)
 
@@ -129,14 +178,15 @@ def halo_jacobi_sweep(A, mesh: RowMesh):
 
 class HaloStencilOperator:
     """A stencil operator whose matvec runs the plane exchange, with `@`, so
-    smoothers and solvers (the one-level async smoothing of the runner) use
-    it unchanged. `base` is the global StencilOperator or
-    VarStencilOperator; `coeffs` this process's coefficients."""
+    smoothers and solvers use it unchanged. `base` is the global
+    StencilOperator or VarStencilOperator; `matvec` builds the exchange's
+    (fn, coeffs) (`halo_stencil_matvec` or `structured_halo_matvec`);
+    `coeffs` are this process's coefficients."""
 
-    def __init__(self, base, mesh: RowMesh):
+    def __init__(self, base, mesh: RowMesh, matvec=halo_stencil_matvec):
         self.base = base
         self.mesh = mesh
-        self._mv, self.coeffs = halo_stencil_matvec(base, mesh)
+        self._mv, self.coeffs = matvec(base, mesh)
 
     @property
     def shape(self):
@@ -152,9 +202,17 @@ class HaloStencilOperator:
 
 
 def make_halo_stencil(A, mesh: RowMesh) -> HaloStencilOperator:
-    """The halo-exchanging form of a (Var)StencilOperator over the mesh
-    (its leading grid axis must divide into the shards)."""
+    """The halo-exchanging form of a (Var)StencilOperator over the mesh in
+    the reference's halo order (its leading grid axis must divide into the
+    shards): the runner's halo routes."""
     return HaloStencilOperator(A, mesh)
+
+
+def make_structured_halo(A, mesh: RowMesh) -> HaloStencilOperator:
+    """The halo-exchanging form of a structured level's (Var)StencilOperator
+    in the global operator's expression (`structured_halo_matvec`): a
+    plane-split level of the structured hierarchy across processes."""
+    return HaloStencilOperator(A, mesh, structured_halo_matvec)
 
 
 class SlabTransfer:

@@ -30,7 +30,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from amg_tpu_torch.dtypes import SETUP_DTYPE, resolve_device
 from amg_tpu_torch.ops.var_stencil import (
@@ -44,29 +43,7 @@ from amg_tpu_torch.setup.hierarchy import HostHierarchy, HostLevel
 from amg_tpu_torch.setup.rap import estimate_rho_dinv_a
 from amg_tpu_torch.smooth.smoothers import SmootherType, make_smoother_data
 from amg_tpu_torch.sparse.csr import CSRMatrix
-from amg_tpu_torch.sparse.stencil import StencilOperator, stencil_to_csr
-
-
-def _shifted_stack(grid: torch.Tensor, offsets) -> torch.Tensor:
-    """(m, *grid.shape) stack of grid shifted by each offset, zero outside
-    (the Dirichlet truncation): one pad and one stack instead of m passes."""
-    nd = grid.ndim
-    reach = [max(abs(o[d]) for o in offsets) for d in range(nd)]
-    pad = []
-    for d in reversed(range(nd)):
-        pad += [reach[d], reach[d]]
-    padded = F.pad(grid, pad)
-    return torch.stack(
-        [
-            padded[
-                tuple(
-                    slice(reach[d] + o[d], reach[d] + o[d] + grid.shape[d])
-                    for d in range(nd)
-                )
-            ]
-            for o in offsets
-        ]
-    )
+from amg_tpu_torch.sparse.stencil import StencilOperator, stencil_to_csr, tap_sum
 
 
 @dataclass
@@ -96,8 +73,9 @@ class VarStencilOperator:
         return torch.zeros(self.n_rows, dtype=self.coeffs.dtype, device=self.coeffs.device)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        shifted = _shifted_stack(x.reshape(self.grid_shape), self.offsets)
-        return (self.coeffs * shifted).sum(0).reshape(x.shape)
+        # the diagonals in list order, as K5 sums them: every DIA form (K5,
+        # its plain version, this one, its plane halo) rounds alike
+        return tap_sum(x.reshape(self.grid_shape), self.coeffs, self.offsets).reshape(x.shape)
 
     def __matmul__(self, x):
         return self.matvec(x)

@@ -170,25 +170,19 @@ def smoother_data_from_arrays(arrays: dict, dtype, device) -> SmootherData:
 
 
 class ShardedBlockInverse(NamedTuple):
-    """The block inverses of a row-sharded level across processes: the
-    blocks (cut from the global rows) that meet this process's rows, `row0`
-    the global row of their first row, `rows` this process's global rows.
-    Applied to the gathered residual, keeping this process's rows, it is
-    the one-process block solve, block boundaries unchanged."""
+    """The block inverses of a row-sharded level across processes: all the
+    level's blocks (cut from the global rows), applied to the gathered
+    residual by the one batched product that one process holding the level
+    makes, of which this process keeps its `rows`. So the block solve is
+    the one-process one bit for bit (a product over fewer blocks may round
+    otherwise: a batch of one takes another kernel)."""
 
     blocks: torch.Tensor
-    row0: int
     rows: slice
     mesh: object  # parallel.dist.RowMesh
 
     def solve(self, r: torch.Tensor) -> torch.Tensor:
-        full = self.mesh.gather(r)
-        nb, bs, _ = self.blocks.shape
-        seg = full[self.row0: self.row0 + nb * bs]
-        if seg.shape[0] < nb * bs:
-            seg = torch.nn.functional.pad(seg, (0, nb * bs - seg.shape[0]))
-        out = torch.bmm(self.blocks, seg.reshape(nb, bs, 1)).reshape(-1)
-        return out[self.rows.start - self.row0: self.rows.stop - self.row0]
+        return _block_solve(self.blocks, self.mesh.gather(r))[self.rows]
 
 
 def _block_solve(block_inv, r: torch.Tensor) -> torch.Tensor:

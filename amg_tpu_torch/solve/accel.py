@@ -86,7 +86,8 @@ def _start(v: np.ndarray, dtype, device, mesh=None) -> torch.Tensor:
 
 def _reducers(mesh):
     """(dot, norm) over the whole vector: the plain ones, or the mesh's
-    all-reduced ones where the vectors are this process's rows."""
+    (the shards' dots summed in shard order) where the vectors are this
+    process's rows."""
     return (torch.dot, torch.linalg.norm) if mesh is None else (mesh.dot, mesh.norm)
 
 

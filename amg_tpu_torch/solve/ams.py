@@ -228,7 +228,7 @@ def solve_sharded_ams_pcg(
     """PCG on the sharded edge system: b (and x0) the unpadded global
     vectors, the returned x unpadded and global. The pad rows carry a zero
     residual (unit diagonal, zero right-hand side), so dots and norms are
-    the unpadded system's; across processes they are all-reduced."""
+    the unpadded system's; they sum the shards' dots (`RowMesh.dot`)."""
     from amg_tpu_torch.parallel.dist import pad_vector, unpad_vector
 
     dtype = ams.inv_wscale.dtype

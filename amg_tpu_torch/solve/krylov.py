@@ -34,8 +34,8 @@ def pcg(
     norm: Callable = torch.linalg.norm,
 ) -> PCGResult:
     """`dot` and `norm` reduce over the whole vector: the plain ones on one
-    device, a row mesh's all-reduced ones (parallel.dist.RowMesh) where the
-    vectors are this process's rows."""
+    device, a row mesh's (parallel.dist.RowMesh: the shards' dots summed in
+    shard order) where the vectors are this process's rows."""
     r = b - matvec(x0)
     bnorm = norm(r)
     safe_bnorm = torch.where(bnorm == 0.0, torch.ones_like(bnorm), bnorm)

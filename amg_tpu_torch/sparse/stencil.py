@@ -46,24 +46,32 @@ class StencilOperator:
         return center.expand(self.n_rows).clone()
 
 
-def stencil_matvec(a: StencilOperator, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x via shifted-slice accumulation on the grid view."""
-    grid = x.reshape(a.grid_shape)
-    ndim = len(a.grid_shape)
-    reach = [max(abs(off[d]) for off in a.offsets) for d in range(ndim)]
+def tap_sum(grid: torch.Tensor, coeffs, offsets) -> torch.Tensor:
+    """sum_t coeffs[t] * shift(grid, offset_t), zero outside the grid, the
+    taps summed in list order from zeros: coeffs[t] is a scalar (a constant
+    stencil's weight) or grid-shaped (a variable stencil's plane). The
+    expression of every global stencil and DIA matvec of the port, as K5
+    and its plain version sum (`ops.var_stencil.var_apply_plain`)."""
+    ndim = grid.ndim
+    reach = [max(abs(off[d]) for off in offsets) for d in range(ndim)]
     # F.pad lists (before, after) pairs from the LAST axis backwards
     pad = []
     for d in reversed(range(ndim)):
         pad += [reach[d], reach[d]]
     padded = F.pad(grid, pad)
     y = torch.zeros_like(grid)
-    for w_idx, off in enumerate(a.offsets):
+    for t, off in enumerate(offsets):
         idx = tuple(
-            slice(reach[d] + off[d], reach[d] + off[d] + a.grid_shape[d])
+            slice(reach[d] + off[d], reach[d] + off[d] + grid.shape[d])
             for d in range(ndim)
         )
-        y = y + a.weights[w_idx] * padded[idx]
-    return y.reshape(x.shape)
+        y = y + coeffs[t] * padded[idx]
+    return y
+
+
+def stencil_matvec(a: StencilOperator, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x via shifted-slice accumulation on the grid view."""
+    return tap_sum(x.reshape(a.grid_shape), a.weights, a.offsets).reshape(x.shape)
 
 
 def stencil_to_csr(a: StencilOperator):

@@ -219,10 +219,17 @@ Phases (any failure exits non-zero and prints no result line):
      halo (its history to 1e-12); (f) the grid-mapped extended system at
      27pt 30^3; (g) config4's options with hybrid JGS on the 157k beam (PCG,
      x within 1e-10); (h) 126^3 on the structured hierarchy through the
-     generic cycle: the same steps, x within 1e-12 elsewhere, every kernel
-     counter 0 in every process; host ms, device ms and events a step, and
-     the bytes sent to the other process a step (`RowMesh.sent_bytes`). A
-     {"routes": ...} line records it.
+     generic cycle in float64 and in float32 (tol 1e-4): x exactly the
+     one-process run's (the plane-split levels 32^3, 16^3, 8^3 apply their
+     operators in the global expression, the dots sum the shards' dots in
+     shard order); (i) the identity-BC beam 143x18x18 (144 node planes,
+     155,952 dofs; its level 0 plane-split) under -hierarchy structured
+     -mixed_precision with config10's options (float32 DIA levels, the
+     float64 outer operator): the same PCG count, x within 1e-10; the
+     levels' layouts printed; elsewhere the same steps, x within 1e-12,
+     every kernel counter 0 in every process; host ms, device ms and events
+     a step, and the bytes sent to the other process a step
+     (`RowMesh.sent_bytes`). A {"routes": ...} line records it.
 The last two lines are the `kernels` JSON object (K1 on both of its
 kernels, K2-K5, K5's bf16-plane sweep) and
 {"ok": true, "device": {...}}.
@@ -2848,11 +2855,15 @@ def grid_phase(device, keep):
 # one device). Each process holds 4 of the 8 shards; every route is held
 # against the one-process 8-shard run of the same options, which phases
 # 18 / 19 ran or this phase runs first. The shared host inputs (phase 10's
-# 96^3 host hierarchy, b, the beam's and the 126^3 structured setup) go to
+# 96^3 host hierarchy, b, the beams' and the 126^3 structured setups) go to
 # the workers as files in a temporary directory of the checkout.
 P20_WORKERS = 2
 P20_ROUTES = ("gspmd", "async full", "mixed", "cheby power", "async_smooth", "extended",
-              "hybrid_jgs beam", "structured")
+              "hybrid_jgs beam", "structured", "structured f32", "structured dia mixed")
+# the routes whose x must be the one-process run's exactly: every level
+# computes its rows as one process does
+P20_EXACT = ("structured", "structured f32")
+P20_STRUCT32_TOL = 1e-4  # the 126^3 V(1,1) float32 target (PERF.md section 2)
 P20_SMOOTH_STEPS = 100
 P20_STRUCT_OPTS = {"problem": "27pt", "n": N_SIDE, "hierarchy": "structured",
                    "solver": "mult", "num_devices": MULTI_D}
@@ -2862,6 +2873,11 @@ P20_BEAM_OPTS = {"problem": "elasticity", "nx": BEAM[0], "ny": BEAM[1], "nz": BE
                  "solver": "mult", "smoother": "hybrid_jgs", "outer_solver": "pcg",
                  "num_devices": MULTI_D, "comm": "halo", "device_format": "ell",
                  "setup_type": "classical"}
+# the identity-BC beam nearest the bench's 144x18x18 whose 144 node planes
+# split over the 8 shards, under config10's mixed-precision options
+P20_DIA_OPTS = {"problem": "elasticity", "nx": 143, "ny": BEAM[1], "nz": BEAM[2],
+                "elast_bc": "identity", "hierarchy": "structured", "mixed_precision": True,
+                "tol": 1e-5, "num_cycles": 60, "num_devices": MULTI_D}
 
 
 class P20Route:
@@ -3024,15 +3040,47 @@ def p20_routes(ctx, mesh, device):
 
     so = SolverOptions(**P20_STRUCT_OPTS)
     so.fixup()
-    hier = shard_structured_hierarchy(
-        hierarchy_from_arrays(*ctx["struct_arrays"], dtype=torch.float64, device=device), mesh)
     n = N_SIDE ** 3
-    bst = pad_vector(torch.from_numpy(np.random.default_rng(so.seed).random(n)), (n, n), mesh)
+    b_np = np.random.default_rng(so.seed).random(n)
     scfg2 = cycle_config(so, SmootherType(so.smoother))
-    yield P20Route("structured", mesh,
-                   lambda: solve(hier, scfg2, bst, tol=so.tol, device=device),
-                   lambda k: solve(hier, scfg2, bst, tol=0.0, max_cycles=k, device=device),
-                   glob((n, n)))
+    for name, dtype, tol in (("structured", torch.float64, so.tol),
+                             ("structured f32", torch.float32, P20_STRUCT32_TOL)):
+        hier = shard_structured_hierarchy(
+            hierarchy_from_arrays(*ctx["struct_arrays"], dtype=dtype, device=device), mesh)
+        bst = pad_vector(torch.from_numpy(b_np).to(dtype), (n, n), mesh)
+        yield P20Route(name, mesh,
+                       lambda: solve(hier, scfg2, bst, tol=tol, device=device),
+                       lambda k: solve(hier, scfg2, bst, tol=0.0, max_cycles=k, device=device),
+                       glob((n, n)))
+        del hier, bst
+    # (i) the identity-BC beam under -hierarchy structured -mixed_precision:
+    # the runner's set-up (float32 DIA levels, the float64 DIA outer
+    # operator, plane-split where the 144 node planes split) and its call of
+    # mixed_pcg
+    from amg_tpu_torch.parallel.dist import shard_structured_operator
+    from amg_tpu_torch.setup.structured import VarStencilOperator
+    from amg_tpu_torch.solve.mixed import mixed_pcg
+
+    do = SolverOptions(**P20_DIA_OPTS)
+    do.fixup()
+    dia = ctx["dia"]
+    hier = shard_structured_hierarchy(
+        hierarchy_from_arrays(*dia["arrays"], dtype=torch.float32, device=device), mesh)
+    A64 = VarStencilOperator(coeffs=torch.from_numpy(dia["coeffs"]).to(device),
+                             offsets=dia["offsets"], grid_shape=dia["grid_shape"])
+    if mesh.world_size > 1:
+        A64 = shard_structured_operator(A64, mesh)
+    nd = dia["b"].shape[0]
+    bd = pad_vector(torch.from_numpy(dia["b"]), (nd, nd), mesh)
+    dcfg = cycle_config(do, SmootherType(do.smoother))
+    yield P20Route(
+        "structured dia mixed", mesh,
+        lambda: mixed_pcg(hier, A64, dcfg, bd, tol=do.tol, max_cycles=do.num_cycles,
+                          device=device),
+        # k PCG iterations: one refinement cycle of k inner iterations
+        lambda k: mixed_pcg(hier, A64, dcfg, bd, tol=0.0, max_cycles=k, inner_iters=k,
+                            inner_tol=0.0, device=device),
+        glob((nd, nd)))
 
 
 def p20_measure(route):
@@ -3097,7 +3145,18 @@ def p20_inputs(keep, tmp, device):
         exp = setup_experiment(SolverOptions(**dict(P20_STRUCT_OPTS, only_setup=True)), "cpu")
         ctx["struct_arrays"] = exp.hh.arrays
         del exp
-    del prob
+    # the identity-BC beam's structured set-up as the runner makes it on 8
+    # shards: its host arrays, the float64 outer operator's planes and b
+    t1 = time.perf_counter()
+    exp = setup_experiment(SolverOptions(**dict(P20_DIA_OPTS, only_setup=True)), "cpu")
+    rhs = np.asarray(exp.prob.rhs)
+    ctx["dia"] = {"arrays": exp.hh.arrays, "coeffs": exp.A_acc.coeffs.numpy(),
+                  "offsets": exp.A_acc.offsets, "grid_shape": exp.A_acc.grid_shape,
+                  "b": rhs / np.linalg.norm(rhs)}
+    log(f"  the identity-BC beam {P20_DIA_OPTS['nx']}x{P20_DIA_OPTS['ny']}x"
+        f"{P20_DIA_OPTS['nz']} ({exp.prob.n} dofs): set-up {time.perf_counter() - t1:.2f} s")
+    del exp, prob
+    log_layouts(ctx)
     with open(os.path.join(tmp, "ctx.pkl"), "wb") as f:
         pickle.dump(ctx, f, protocol=pickle.HIGHEST_PROTOCOL)
     log(f"  shared inputs written in {time.perf_counter() - t0:.1f} s")
@@ -3128,6 +3187,26 @@ def p20_inputs(keep, tmp, device):
     del ctx
     torch.cuda.empty_cache()
     return one
+
+
+def log_layouts(ctx):
+    """The layout of each level of the structured routes across 2 processes
+    (`structured_layout`: the plane halo where a level's leading axis splits
+    over the 8 shards)."""
+    import torch
+
+    from amg_tpu_torch.convert import operator_from_arrays
+    from amg_tpu_torch.parallel.dist import RowMesh, structured_layout
+
+    mesh = RowMesh(n_devices=MULTI_D, device=torch.device("cpu"), rank=0,
+                   world_size=P20_WORKERS)
+    for name, (levels, _) in ((f"{N_SIDE}^3 structured", ctx["struct_arrays"]),
+                              ("identity-BC beam", ctx["dia"]["arrays"])):
+        lay = []
+        for lv in levels:
+            A = operator_from_arrays(lv["A"], torch.float64, "cpu")
+            lay.append(f"{tuple(A.grid_shape)} {structured_layout(A, mesh)}")
+        log(f"  {name} levels across {P20_WORKERS} processes: " + ", ".join(lay))
 
 
 def p20_worker(rank, world, port, backend, tmp) -> int:
@@ -3233,8 +3312,10 @@ def routes_phase(device, keep):
     rec["workers"] = results
     for name in P20_ROUTES:
         o = one[name]
-        # PCG's dots are all-reduced: the Krylov band there
-        band = 1e-10 if name == "hybrid_jgs beam" else 1e-12
+        # exact where every level computes its rows as one process does;
+        # the Krylov band under PCG
+        band = (0.0 if name in P20_EXACT else
+                1e-10 if name in ("hybrid_jgs beam", "structured dia mixed") else 1e-12)
         for w in results:
             r = w["routes"][name]
             log(f"{name} across {P20_WORKERS} processes ({w['backend']}, {w['device']}, staged "

@@ -405,9 +405,10 @@ def test_the_one_process_routes_raise_across_processes():
     sm0 = hier_j.levels[0].sm
     n0 = hier_j.levels[0].A.shape[0]
     assert isinstance(sm0.block_inv, ShardedBlockInverse)
-    # the 128-row blocks of the global rows that meet rows [0, n0 / 2)
-    assert sm0.block_inv.row0 == 0
-    assert sm0.block_inv.blocks.shape[0] == -(-(n0 // 2) // 128)
+    # all the 128-row blocks of the global rows, of which it keeps rows
+    # [0, n0 / 2)
+    assert sm0.block_inv.rows == slice(0, n0 // 2)
+    assert sm0.block_inv.blocks.shape[0] == -(-n0 // 128)
     _, hier_s = build_structured_hierarchy(laplacian_3d_27pt(16).stencil,
                                            max_coarse_size=8, device="cpu")
     hier_s = shard_structured_hierarchy(hier_s, mesh)

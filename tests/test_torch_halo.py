@@ -22,6 +22,7 @@ from amg_tpu.smooth import SmootherType as RSm
 from amg_tpu_torch.convert import halo_from_arrays
 from amg_tpu_torch.parallel import make_row_mesh
 from amg_tpu_torch.parallel import halo as phalo
+from amg_tpu_torch.parallel.dist import RowMesh
 from amg_tpu_torch.parallel.spcomm import comm_trace
 from amg_tpu_torch.problems import laplacian_3d_7pt as p7, laplacian_3d_27pt as p27
 from amg_tpu_torch.setup.structured import build_structured_hierarchy as p_structured
@@ -151,3 +152,57 @@ def test_the_halo_form_of_an_interleaved_dia_operator():
     x = torch.from_numpy(np.random.default_rng(5).random(prob.n))
     got = phalo.make_halo_stencil(vs, mesh) @ x
     torch.testing.assert_close(got, vs @ x, rtol=1e-13, atol=1e-13)
+
+
+def _beam_dia():
+    """The identity-BC elasticity beam 15x4x4's interleaved DIA operator
+    (reach 5 along its component axis), 16 node planes."""
+    from amg_tpu_torch.problems.elasticity import elasticity_beam
+    from amg_tpu_torch.setup.structured import csr_to_dia_stencil
+
+    prob = elasticity_beam(15, 4, 4, bc="identity")
+    return csr_to_dia_stencil(prob.A, prob.grid_shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("op", ["27pt stencil", "beam dia"])
+def test_the_structured_halo_is_the_global_operator_bit_for_bit(meshes, op, dtype):
+    """The structured hierarchy's plane-split form (`make_structured_halo`)
+    computes each row in the global operator's expression over the haloed
+    slab (every tap in list order): bit-equal to A @ x in both dtypes, on
+    the 27-point 16^3 stencil and the beam's DIA operator, for one process
+    holding the 8 shards and for each of two processes holding 4 (their
+    neighbour planes handed over as the exchange would). The runner's halo
+    form keeps the reference's interior / up / down order, which rounds
+    differently in float32."""
+    from amg_tpu_torch.setup.structured import VarStencilOperator
+    from amg_tpu_torch.sparse.stencil import StencilOperator
+
+    mesh = meshes[1]
+    if op == "beam dia":
+        vs = _beam_dia()
+        assert max(abs(o[-1]) for o in vs.offsets) == 5
+        A = VarStencilOperator(coeffs=vs.coeffs.to(dtype), offsets=vs.offsets,
+                               grid_shape=vs.grid_shape)
+    else:
+        st = p27(16).stencil
+        A = StencilOperator(weights=st.weights.to(dtype), offsets=st.offsets,
+                            grid_shape=st.grid_shape)
+    x = torch.from_numpy(_x(A.n_rows, 7)).to(dtype)
+    want = A @ x
+    assert torch.equal(phalo.make_structured_halo(A, mesh) @ x, want)
+    if op == "27pt stencil" and dtype == torch.float32:
+        assert not torch.equal(phalo.make_halo_stencil(A, mesh) @ x, want)
+    grid = x.view(A.grid_shape)
+    half = A.grid_shape[0] // 2
+    for rank in (0, 1):
+        pm = RowMesh(n_devices=8, device=torch.device("cpu"), rank=rank, world_size=2)
+
+        def send_recv(sends, recvs, rank=rank):
+            # the other process's edge plane next to this one's half
+            for t, src, _ in recvs:
+                t.copy_(grid[half - 1: half] if src < rank else grid[half: half + 1])
+
+        pm.send_recv = send_recv
+        rows = slice(rank * x.numel() // 2, (rank + 1) * x.numel() // 2)
+        assert torch.equal(phalo.make_structured_halo(A, pm) @ x[rows], want[rows])

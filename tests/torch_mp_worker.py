@@ -21,8 +21,9 @@ the process boundary:
      "gspmd", the async additive solver and mixed precision on the row
      mesh, the Chebyshev solver by each bound estimator, one-level async
      smoothing, the grid-mapped extended system, the block smoothers and
-     the sharded structured hierarchy; the one-process round also runs each
-     on one device.
+     the sharded structured hierarchy (float64 and float32, a stencil and a
+     DIA operator, the latter also under -mixed_precision); the
+     one-process round also runs each on one device.
 
 Prints one "RESULT <json>" line (global vectors gathered); the parent test
 compares it with the one-process run.
@@ -136,6 +137,33 @@ def run_options(opts, nproc) -> dict:
     return out
 
 
+def run_float32(opts, nproc) -> dict:
+    """run_options with the runner's structured hierarchy in float32: its
+    host arrays cast by hierarchy_from_arrays (as chip_smoke.py's phase 20
+    builds its structured routes), sharded as the runner shards it, and
+    solved by the runner's own solve in float32."""
+    from dataclasses import replace
+
+    import torch
+
+    from amg_tpu_torch.convert import hierarchy_from_arrays
+    from amg_tpu_torch.parallel import shard_structured_hierarchy
+    from amg_tpu_torch.utils.runner import setup_experiment, solve_experiment
+
+    def one(o):
+        exp = setup_experiment(replace(o), "cpu")
+        exp.params = replace(exp.params, dtype=torch.float32)
+        exp.hier = hierarchy_from_arrays(*exp.hh.arrays, dtype=torch.float32, device="cpu")
+        if exp.mesh is not None:
+            exp.hier = shard_structured_hierarchy(exp.hier, exp.mesh)
+        return _stats(solve_experiment(exp))
+
+    out = one(opts)
+    if nproc == 1:
+        out["single"] = one(replace(opts, num_devices=1))
+    return out
+
+
 def run_cheby(opts, nproc) -> dict:
     """The Chebyshev solve with cheby_setup's bounds on the row mesh (and,
     in the one-process round, on one device)."""
@@ -203,7 +231,8 @@ def route_cases():
     precision, (d) the Chebyshev solver by each bound estimator, (e) one-level
     async smoothing on a plane-split stencil and on a CSR matrix, (f) the
     grid-mapped extended system, (g) the block smoothers, (h) the sharded
-    structured hierarchy (a stencil and a DIA operator)."""
+    structured hierarchy (a stencil in float64 and float32, a DIA operator
+    in float64 and under -mixed_precision)."""
     from amg_tpu_torch.utils.config import SolverOptions
 
     c7 = dict(problem="27pt", n=12, num_devices=8, comm="halo", device_format="ell")
@@ -229,13 +258,20 @@ def route_cases():
     for sm, iters in (("hybrid_jgs", 200), ("gs", 10)):
         cases.append((f"block {sm}", run_options,
                       SolverOptions(num_cycles=iters, **dict(c4, smoother=sm))))
-    cases.append(("structured", run_options, SolverOptions(
-        problem="27pt", n=16, solver="mult", hierarchy="structured", num_devices=8)))
+    struct = dict(problem="27pt", n=16, solver="mult", hierarchy="structured", num_devices=8)
+    cases.append(("structured", run_options, SolverOptions(**struct)))
+    # float32 (tol 1e-6, inside float32's reach): the plane-split levels
+    # must round as the global operators do
+    cases.append(("structured f32", run_float32, SolverOptions(tol=1e-6, **struct)))
     # the DIA form: an interleaved elasticity operator (its taps reach 5
-    # along the component axis) on the plane halo, masked transfers (PCG)
-    cases.append(("structured dia", run_options, SolverOptions(
-        problem="elasticity", nx=15, ny=4, nz=4, elast_bc="identity", hierarchy="structured",
-        num_devices=8)))
+    # along the component axis) on the plane halo, masked transfers (PCG);
+    # under -mixed_precision float32 DIA levels and the float64 outer
+    # operator, both plane-split
+    beam = dict(problem="elasticity", nx=15, ny=4, nz=4, elast_bc="identity",
+                hierarchy="structured", num_devices=8)
+    cases.append(("structured dia", run_options, SolverOptions(**beam)))
+    cases.append(("structured dia mixed", run_options,
+                  SolverOptions(mixed_precision=True, **beam)))
     return cases
 
 
