@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from amg_tpu_torch.ops import _build
+from amg_tpu_torch.utils import tracing
 
 MODES = ("spmv", "residual", "sweep", "sweep_vec", "sweep_vec_norm")
 SWEEPK_MODES = tuple(f"sweep{k}{v}" for v in ("", "_vec") for k in (2, 3, 4))
@@ -336,8 +337,8 @@ def _launch_k1(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode):
         out = _launch_box(u_pad, b_pad, scale_pad, box, grid_shape, alpha, mode, 1)
     else:
         out = _launch_taps(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, mode)
-        stencil_kernel_padded.tap_launches += 1
-    stencil_kernel_padded.launches += 1
+        tracing.count("stencil_kernel_padded.tap_launches")
+    tracing.count("stencil_kernel_padded.launches")
     return out
 
 
@@ -345,7 +346,7 @@ def _launch_k2(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, nsweep):
     mode = "sweep" if scale_pad is None else "sweep_vec"
     out = _launch_box(u_pad, b_pad, scale_pad, uniform_box_weights(taps), grid_shape,
                       alpha, mode, nsweep)
-    stencil_kernel_padded.k2_launches += 1
+    tracing.count("stencil_kernel_padded.k2_launches")
     return out
 
 
@@ -362,9 +363,11 @@ def stencil_kernel_padded(
 
     K2 (SWEEPK_MODES, `sweep<K>` with alpha, `sweep<K>_vec` with scale_pad):
     K sweeps in one launch; the taps must be the uniform 27-point box (the
-    reference kernel's contract). Launches are counted in `.launches` (K1,
-    both routes), `.tap_launches` (K1's tap-list route alone) and
-    `.k2_launches` (K2)."""
+    reference kernel's contract). Launches are counted in the recorder's
+    (`utils.tracing`) `stencil_kernel_padded.launches` (K1, both routes),
+    `stencil_kernel_padded.tap_launches` (K1's tap-list route alone) and
+    `stencil_kernel_padded.k2_launches` (K2); its products with A (one a
+    K1 call, K a K2 call) in `spmv.stencil_kernel`, on every route."""
     if mode in SWEEPK_MODES:
         return _sweepk(u_pad, b_pad, weights, grid_shape, offsets, alpha, scale_pad, mode)
     if mode not in MODES:
@@ -379,6 +382,7 @@ def stencil_kernel_padded(
         check_state("scale_pad", scale_pad, u_pad, shape)
     else:
         scale_pad = None
+    tracing.count("spmv.stencil_kernel")
     if u_pad.device.type == "cpu":
         return stencil_plain(u_pad, b_pad, taps, grid_shape, alpha, scale_pad, mode)
     return _launch_k1(
@@ -399,11 +403,7 @@ def _sweepk(u_pad, b_pad, weights, grid_shape, offsets, alpha, scale_pad, mode):
         check_state("scale_pad", scale_pad, u_pad, shape)
     else:
         scale_pad = None
+    tracing.count("spmv.stencil_kernel", nsweep)
     if u_pad.device.type == "cpu":
         return sweepk_plain(u_pad, b_pad, taps, grid_shape, nsweep, alpha, scale_pad)
     return _launch_k2(u_pad, b_pad, scale_pad, taps, grid_shape, alpha, nsweep)
-
-
-stencil_kernel_padded.launches = 0
-stencil_kernel_padded.tap_launches = 0
-stencil_kernel_padded.k2_launches = 0

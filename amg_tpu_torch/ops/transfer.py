@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 
 from amg_tpu_torch.ops import _build
+from amg_tpu_torch.utils import tracing
 from amg_tpu_torch.ops.stencil import (
     check_aligned,
     check_dtype_device,
@@ -203,6 +204,13 @@ def _check_transfer(grid_shape, offsets):
         raise ValueError("fused transfers need (s+1)//2 coarsening and reach-1 taps")
 
 
+def _count_products() -> None:
+    """K3 and K4 each compute one product with A and one transfer, on
+    every route (`utils.tracing`'s `spmv.*`)."""
+    tracing.count("spmv.stencil_kernel")
+    tracing.count("spmv.transfer")
+
+
 def residual_restrict_padded(
     u_pad, b_pad, weights, grid_shape, offsets, zero_guess: bool = False,
     scale_pad=None, alpha: float = 0.0,
@@ -226,6 +234,7 @@ def residual_restrict_padded(
     else:
         check_state("u_pad", u_pad, b_pad, shape)
         scale_pad, alpha = None, 0.0
+    _count_products()
     if b_pad.device.type == "cpu":
         return residual_restrict_plain(
             u_pad, b_pad, taps, grid_shape, zero_guess, scale_pad, alpha
@@ -243,11 +252,9 @@ def residual_restrict_padded(
         _build.ptr(scale_pad), _build.ptr(rc), w, dz, dy, dx, n, Z, Y, X, shape[1],
         shape[2], *cs, *rc.shape, int(zero_guess), *grid, zchunk, float(alpha),
     )
-    residual_restrict_padded.launches += 1
+    tracing.count("residual_restrict_padded.launches")
     return rc
 
-
-residual_restrict_padded.launches = 0
 
 
 def _launch_k4(x_pad, b_pad, scale_pad, ec_pad, taps, grid_shape, alpha, zero_guess,
@@ -297,13 +304,11 @@ def prolong_sweep_padded(
         check_state("scale_pad", scale_pad, b_pad, shape)
     else:
         scale_pad = None
+    _count_products()
     if b_pad.device.type == "cpu":
         return prolong_sweep_plain(
             x_pad, b_pad, ec_pad, taps, grid_shape, alpha, scale_pad, zero_guess
         )
     out = _launch_k4(x_pad, b_pad, scale_pad, ec_pad, taps, grid_shape, alpha, zero_guess)
-    prolong_sweep_padded.launches += 1
+    tracing.count("prolong_sweep_padded.launches")
     return out
-
-
-prolong_sweep_padded.launches = 0

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from amg_tpu_torch.ops import _build
+from amg_tpu_torch.utils import tracing
 from amg_tpu_torch.ops.stencil import check_dtype_device, check_state
 
 MODES = ("spmv", "residual", "sweep")
@@ -143,8 +144,8 @@ def _launch_k5(u_pad, coeffs, offsets, grid_shape, b_pad, scale_pad, mode):
         _build.ptr(b_pad), _build.ptr(scale_pad), _build.ptr(out), dz, dy, dx, n,
         Z, Y, X, Zr, Yr, Xr, MODES.index(mode),
     )
-    var_stencil_kernel_padded.launches += 1
-    var_stencil_kernel_padded.bf16_launches += int(narrow)
+    tracing.count("var_stencil_kernel_padded.launches")
+    tracing.count("var_stencil_kernel_padded.bf16_launches", int(narrow))
     return out
 
 
@@ -153,8 +154,9 @@ def var_stencil_kernel_padded(u_pad, coeffs, offsets, grid_shape, b_pad=None,
     """K5 on padded-layout vectors (see MODES). coeffs is (m, Z, Y, X), the
     planes of the interior, in u_pad's dtype or, in `sweep` only, bfloat16;
     b_pad is read by residual and sweep, scale_pad by sweep. Launches are
-    counted in `.launches`, those with bfloat16 planes also in
-    `.bf16_launches`."""
+    counted in the recorder's (`utils.tracing`) `var_stencil_kernel_padded.
+    launches`, those with bfloat16 planes also in `var_stencil_kernel_padded.
+    bf16_launches`."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
@@ -180,7 +182,3 @@ def var_stencil_kernel_padded(u_pad, coeffs, offsets, grid_shape, b_pad=None,
     if u_pad.device.type == "cpu":
         return var_stencil_plain(u_pad, coeffs, offsets, grid_shape, b_pad, scale_pad, mode)
     return _launch_k5(u_pad, coeffs, offsets, grid_shape, b_pad, scale_pad, mode)
-
-
-var_stencil_kernel_padded.launches = 0
-var_stencil_kernel_padded.bf16_launches = 0

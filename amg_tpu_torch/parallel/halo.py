@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from amg_tpu_torch.parallel.dist import RowMesh
+from amg_tpu_torch.utils import tracing
 
 
 def _apply_taps(grid, coeffs, offsets, tap_ids, zshift, out_shape):
@@ -198,6 +199,7 @@ class HaloStencilOperator:
         return self.mesh.shard_vector(self.base.diagonal())
 
     def __matmul__(self, x):
+        tracing.count("spmv.halo_stencil")
         return self._mv(x, self.coeffs)
 
 
@@ -270,6 +272,7 @@ class SlabTransfer:
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         from amg_tpu_torch.setup.structured import _transfer_axis
 
+        tracing.count("spmv.slab_transfer")
         W = self.mesh.world_size
         src = self.T.fine_shape if self.to_coarse else self.T.coarse_shape
         g = x.reshape((src[0] // W,) + tuple(src[1:]))

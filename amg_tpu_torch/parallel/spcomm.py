@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.parallel.dist import RowMesh
+from amg_tpu_torch.utils import tracing
 
 
 class comm_trace:
@@ -285,6 +286,7 @@ class HaloELL(_HaloOperator):
 
 def halo_spmv(a: HaloELL, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with the boundary-segment exchange."""
+    tracing.count("spmv.halo_ell")
     mesh = a.mesh
     if mesh.trace is not None:
         mesh.trace.append(a.comm_bytes_per_matvec())
@@ -395,6 +397,7 @@ class HaloBSR(_HaloOperator):
 def halo_bsr_spmv(a: HaloBSR, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x: the column-block exchange, then one batched tile product
     per row block."""
+    tracing.count("spmv.halo_bsr")
     mesh = a.mesh
     if mesh.trace is not None:
         mesh.trace.append(a.comm_bytes_per_matvec())

@@ -28,6 +28,8 @@ from amg_tpu_torch.setup.hierarchy import HierarchyParams, HostHierarchy, HostLe
 from amg_tpu_torch.setup.rap import estimate_rho_dinv_a, galerkin_product
 from amg_tpu_torch.smooth.smoothers import SmootherType
 from amg_tpu_torch.sparse.csr import CSRMatrix
+from amg_tpu_torch.utils import tracing
+from amg_tpu_torch.utils.tracing import setup_span
 
 
 def amalgamate(A: CSRMatrix, num_functions: int) -> sp.csr_matrix:
@@ -164,6 +166,7 @@ def build_sa_host_hierarchy(
     """Smoothed-aggregation hierarchy. `B` are the near-nullspace candidates
     (defaults to the constant vector). Drop-in alternative to
     `build_host_hierarchy` (select with params.setup_type='sa')."""
+    tracing.begin_setup()
     if B is None:
         B = np.ones((A.n_rows, 1))
     B = np.asarray(B, dtype=np.float64)
@@ -172,13 +175,14 @@ def build_sa_host_hierarchy(
     nf = max(params.num_functions, 1)
     for lvl in range(params.max_levels):
         hl = HostLevel(A=level_A)
-        scale = (
-            level_A.l1_row_norms()
-            if params.smoother
-            in (SmootherType.L1_JACOBI, SmootherType.SYM_L1_JACOBI)
-            else None
-        )
-        rho_s = estimate_rho_dinv_a(level_A, seed=params.seed, scale=scale)
+        with setup_span("rho", lvl):
+            scale = (
+                level_A.l1_row_norms()
+                if params.smoother
+                in (SmootherType.L1_JACOBI, SmootherType.SYM_L1_JACOBI)
+                else None
+            )
+            rho_s = estimate_rho_dinv_a(level_A, seed=params.seed, scale=scale)
         hl.weight = (
             params.smooth_weight
             if params.smooth_weight is not None
@@ -187,17 +191,20 @@ def build_sa_host_hierarchy(
         hh.levels.append(hl)
         if level_A.n_rows <= params.max_coarse_size or lvl == params.max_levels - 1:
             break
-        C = (
-            amalgamate(level_A, nf)
-            if nf > 1
-            else level_A.to_scipy().tocsr()
-        )
-        S = sa_strength(C, params.sa_theta)
-        agg = aggregate(S, seed=params.seed)
+        with setup_span("strength", lvl):
+            C = (
+                amalgamate(level_A, nf)
+                if nf > 1
+                else level_A.to_scipy().tocsr()
+            )
+            S = sa_strength(C, params.sa_theta)
+        with setup_span("coarsen", lvl):
+            agg = aggregate(S, seed=params.seed)
         na = int(agg.max()) + 1
         if na == 0:
             break  # nothing aggregated (all-isolated level)
-        P_tent, Bc = tentative_prolongator(agg, B, nf)
+        with setup_span("interp", lvl):
+            P_tent, Bc = tentative_prolongator(agg, B, nf)
         if P_tent.shape[1] >= level_A.n_rows:
             break  # aggregation stalled
         # after the zero-column drop the coarse blocking may be ragged; the
@@ -206,17 +213,19 @@ def build_sa_host_hierarchy(
         # correctness)
         # prolongator smoothing: P = (I - omega * Dinv A) P_tent with the
         # diagonal scaling; omega = sa_omega / rho(Dinv A)
-        diag = level_A.diagonal()
-        diag = np.where(diag == 0.0, 1.0, diag)
-        rho_d = estimate_rho_dinv_a(level_A, seed=params.seed)
-        omega = params.sa_omega / max(rho_d, 1e-12)
-        As = level_A.to_scipy().tocsr()
-        Pt = P_tent.to_scipy()
-        P = (Pt - sp.diags(omega / diag) @ (As @ Pt)).tocsr()
-        P = CSRMatrix.from_scipy(P)
-        R = P.transpose()
+        with setup_span("interp", lvl):
+            diag = level_A.diagonal()
+            diag = np.where(diag == 0.0, 1.0, diag)
+            rho_d = estimate_rho_dinv_a(level_A, seed=params.seed)
+            omega = params.sa_omega / max(rho_d, 1e-12)
+            As = level_A.to_scipy().tocsr()
+            Pt = P_tent.to_scipy()
+            P = (Pt - sp.diags(omega / diag) @ (As @ Pt)).tocsr()
+            P = CSRMatrix.from_scipy(P)
+            R = P.transpose()
         hl.P, hl.R = P, R
-        level_A = galerkin_product(R, level_A, P)
+        with setup_span("rap", lvl):
+            level_A = galerkin_product(R, level_A, P)
         B = Bc
         # after the first SA level the blocking is nb (candidate count)
         nf = B.shape[1]

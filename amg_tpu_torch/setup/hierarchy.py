@@ -15,6 +15,14 @@ the additive cycles' transfers (smoothed P~/R~, AFACj ideal P_id/R_id);
 the coarsest A becomes a dense inverse applied by one matmul. The injection
 restriction R_inj stays on the host: no correction reads it, the
 grid-parallel ones included.
+
+Every set-up is timed by phase (`utils/tracing.py::setup_span`), per level:
+`setup.rho` (the smoother weight's spectral radius), `setup.strength`,
+`setup.coarsen` (the C/F split, or SA's aggregation), `setup.interp` (the
+interpolant with its truncation and its transpose, or SA's tentative and
+smoothed prolongator), `setup.ideal` (R_inj, P_id/R_id), `setup.transfers`
+(the smoothed P~/R~) and `setup.rap`; once, `setup.device` (the device
+formats, their upload and the coarse inverse, synchronised).
 `Level`/`Hierarchy` hold the device side of both this builder and the
 structured ones (`setup/structured.py`).
 """
@@ -38,6 +46,8 @@ from amg_tpu_torch.setup.rap import estimate_rho_dinv_a, galerkin_product, smoot
 from amg_tpu_torch.setup.strength import strength_graph
 from amg_tpu_torch.smooth.smoothers import SmootherData, SmootherType, make_smoother_data
 from amg_tpu_torch.sparse.csr import CSRMatrix
+from amg_tpu_torch.utils import tracing
+from amg_tpu_torch.utils.tracing import setup_span
 
 
 @dataclass(frozen=True)
@@ -172,6 +182,7 @@ def _same_function(S, func) -> sp.csr_matrix:
 def build_host_hierarchy(A: CSRMatrix, params: HierarchyParams) -> HostHierarchy:
     """The classical hierarchy on the host, level by level as the reference
     builds it."""
+    tracing.begin_setup()
     hh = HostHierarchy(params=params)
     coarsen = COARSENING[params.coarsen_type]
     interp = {"direct": direct_interpolation, "ext+i": extended_i_interpolation}[
@@ -187,83 +198,99 @@ def build_host_hierarchy(A: CSRMatrix, params: HierarchyParams) -> HostHierarchy
             hl.weight = params.smooth_weight
         else:
             # per-level damping w ~ 1 / rho(S^-1 A), S the smoother's scaling
-            scale = level_A.l1_row_norms() if _l1_smoother(params.smoother) else None
-            hl.weight = 1.0 / max(
-                estimate_rho_dinv_a(level_A, seed=params.seed, scale=scale), 1e-12
-            )
+            with setup_span("rho", lvl):
+                scale = level_A.l1_row_norms() if _l1_smoother(params.smoother) else None
+                hl.weight = 1.0 / max(
+                    estimate_rho_dinv_a(level_A, seed=params.seed, scale=scale), 1e-12
+                )
         hh.levels.append(hl)
         if level_A.n_rows <= params.max_coarse_size or lvl == params.max_levels - 1:
             break
-        if params.num_functions > 1:
-            S = _same_function(strength_graph(level_A, params.strong_threshold, num_functions=1),
-                               func)
-        else:
-            S = strength_graph(level_A, params.strong_threshold)
-        cf = coarsen(S, seed=params.seed)
+        with setup_span("strength", lvl):
+            if params.num_functions > 1:
+                S = _same_function(strength_graph(level_A, params.strong_threshold,
+                                                  num_functions=1), func)
+            else:
+                S = strength_graph(level_A, params.strong_threshold)
+        with setup_span("coarsen", lvl):
+            cf = coarsen(S, seed=params.seed)
         nc = int((cf == C_PT).sum())
         if nc == 0 or nc == level_A.n_rows:
             break  # coarsening stalled
-        P = interp(level_A, S, cf)
-        P = truncate_interpolation(P, params.trunc_factor, params.p_max_elmts)
+        with setup_span("interp", lvl):
+            P = interp(level_A, S, cf)
+            P = truncate_interpolation(P, params.trunc_factor, params.p_max_elmts)
         if lvl < params.agg_num_levels:
             # aggressive coarsening: coarsen the first-pass coarse grid again
             # and compose the interpolant through it (two-stage P = P1 P2
             # over the Galerkin intermediate operator)
-            A_mid = galerkin_product(P.transpose(), level_A, P)
+            with setup_span("rap", lvl):
+                A_mid = galerkin_product(P.transpose(), level_A, P)
             crows1 = np.flatnonzero(cf == C_PT)
-            if params.num_functions > 1:
-                S2 = _same_function(strength_graph(A_mid, params.strong_threshold,
-                                                   num_functions=1), func[crows1])
-            else:
-                S2 = strength_graph(A_mid, params.strong_threshold)
-            cf2 = coarsen(S2, seed=params.seed)
+            with setup_span("strength", lvl):
+                if params.num_functions > 1:
+                    S2 = _same_function(strength_graph(A_mid, params.strong_threshold,
+                                                       num_functions=1), func[crows1])
+                else:
+                    S2 = strength_graph(A_mid, params.strong_threshold)
+            with setup_span("coarsen", lvl):
+                cf2 = coarsen(S2, seed=params.seed)
             nc2 = int((cf2 == C_PT).sum())
             if 0 < nc2 < A_mid.n_rows:
-                P2 = interp(A_mid, S2, cf2)
-                P2 = truncate_interpolation(P2, params.trunc_factor, params.p_max_elmts)
-                P = CSRMatrix.from_scipy((P.to_scipy() @ P2.to_scipy()).tocsr())
+                with setup_span("interp", lvl):
+                    P2 = interp(A_mid, S2, cf2)
+                    P2 = truncate_interpolation(P2, params.trunc_factor, params.p_max_elmts)
+                    P = CSRMatrix.from_scipy((P.to_scipy() @ P2.to_scipy()).tocsr())
                 # composite C/F split: the second-pass C-points mapped back to
                 # this level's rows
                 cf_comp = np.full(level_A.n_rows, F_PT, dtype=cf.dtype)
                 cf_comp[crows1[np.flatnonzero(cf2 == C_PT)]] = C_PT
                 cf = cf_comp
                 nc = nc2
-        R = P.transpose()
+        with setup_span("interp", lvl):
+            R = P.transpose()
         hl.P, hl.R, hl.cf = P, R, cf
-        # injection interpolant: identity on the C-points
-        crows = np.flatnonzero(cf == C_PT)
-        hl.R_inj = CSRMatrix.from_scipy(
-            sp.coo_matrix((np.ones(nc), (np.arange(nc), crows)),
-                          shape=(nc, level_A.n_rows)).tocsr()
-        )
-        # AFACj ideal interpolant P_id = [-D_ff^-1 A_fc ; I], from A's COO
-        n_rows = level_A.n_rows
-        cmap = np.full(n_rows, -1, np.int64)
-        cmap[crows] = np.arange(nc)
-        Aco = level_A.to_scipy().tocoo()
-        diag = level_A.diagonal()
-        diag = np.where(diag == 0.0, 1.0, diag)
-        fc = (cf[Aco.row] != C_PT) & (cf[Aco.col] == C_PT)
-        pid_rows = np.concatenate([Aco.row[fc], crows])
-        pid_cols = np.concatenate([cmap[Aco.col[fc]], np.arange(nc)])
-        pid_data = np.concatenate([-Aco.data[fc] / diag[Aco.row[fc]], np.ones(nc)])
-        P_id_sp = sp.coo_matrix((pid_data, (pid_rows, pid_cols)), shape=(n_rows, nc)).tocsr()
-        hl.P_id = CSRMatrix.from_scipy(P_id_sp)
-        hl.R_id = CSRMatrix.from_scipy(P_id_sp.T.tocsr())
+        with setup_span("ideal", lvl):
+            hl.R_inj, hl.P_id, hl.R_id = _ideal_transfers(level_A, cf, nc)
         if params.build_smoothed_transfers:
-            scale = (
-                level_A.l1_row_norms()
-                if _l1_smoother(params.smoother)
-                else np.where(level_A.diagonal() == 0.0, 1.0, level_A.diagonal())
-            )
-            hl.P_s, hl.R_s = smoothed_transfer(level_A, P, scale, hl.weight)
-            if params.add_trunc_factor > 0.0 or params.add_p_max_elmts > 0:
-                P_t = truncate_interpolation(hl.P_s, params.add_trunc_factor,
-                                             params.add_p_max_elmts)
-                hl.P_s, hl.R_s = P_t, P_t.transpose()
-        level_A = galerkin_product(R, level_A, P)
+            with setup_span("transfers", lvl):
+                scale = (
+                    level_A.l1_row_norms()
+                    if _l1_smoother(params.smoother)
+                    else np.where(level_A.diagonal() == 0.0, 1.0, level_A.diagonal())
+                )
+                hl.P_s, hl.R_s = smoothed_transfer(level_A, P, scale, hl.weight)
+                if params.add_trunc_factor > 0.0 or params.add_p_max_elmts > 0:
+                    P_t = truncate_interpolation(hl.P_s, params.add_trunc_factor,
+                                                 params.add_p_max_elmts)
+                    hl.P_s, hl.R_s = P_t, P_t.transpose()
+        with setup_span("rap", lvl):
+            level_A = galerkin_product(R, level_A, P)
         func = func[cf == C_PT]
     return hh
+
+
+def _ideal_transfers(level_A: CSRMatrix, cf: np.ndarray, nc: int) -> tuple:
+    """(R_inj, P_id, R_id) of a level: the injection restriction (identity
+    on the C-points) and the AFACj ideal interpolant P_id = [-D_ff^-1 A_fc;
+    I], from A's COO, with its transpose."""
+    crows = np.flatnonzero(cf == C_PT)
+    R_inj = CSRMatrix.from_scipy(
+        sp.coo_matrix((np.ones(nc), (np.arange(nc), crows)),
+                      shape=(nc, level_A.n_rows)).tocsr()
+    )
+    n_rows = level_A.n_rows
+    cmap = np.full(n_rows, -1, np.int64)
+    cmap[crows] = np.arange(nc)
+    Aco = level_A.to_scipy().tocoo()
+    diag = level_A.diagonal()
+    diag = np.where(diag == 0.0, 1.0, diag)
+    fc = (cf[Aco.row] != C_PT) & (cf[Aco.col] == C_PT)
+    pid_rows = np.concatenate([Aco.row[fc], crows])
+    pid_cols = np.concatenate([cmap[Aco.col[fc]], np.arange(nc)])
+    pid_data = np.concatenate([-Aco.data[fc] / diag[Aco.row[fc]], np.ones(nc)])
+    P_id_sp = sp.coo_matrix((pid_data, (pid_rows, pid_cols)), shape=(n_rows, nc)).tocsr()
+    return R_inj, CSRMatrix.from_scipy(P_id_sp), CSRMatrix.from_scipy(P_id_sp.T.tocsr())
 
 
 # the host transfers that go to the device; R_inj stays on the host (no
@@ -332,31 +359,32 @@ def device_hierarchy(
     from amg_tpu_torch.setup.structured import VarStencilOperator
 
     device = resolve_device(device)
-    dtype = params.dtype
-    convert = _format_converter(params)
-    levels = []
-    for k, hl in enumerate(hh.levels):
-        if k == 0 and fine_stencil is not None and params.keep_stencil_fine:
-            meta = {"offsets": tuple(tuple(o) for o in fine_stencil.offsets),
-                    "grid_shape": tuple(fine_stencil.grid_shape)}
-            if isinstance(fine_stencil, VarStencilOperator):
-                A = {"kind": dia_kind(device, dtype, fine_stencil.grid_shape),
-                     "coeffs": fine_stencil.coeffs.detach().cpu().numpy(), **meta}
+    with setup_span("device", sync=device):
+        dtype = params.dtype
+        convert = _format_converter(params)
+        levels = []
+        for k, hl in enumerate(hh.levels):
+            if k == 0 and fine_stencil is not None and params.keep_stencil_fine:
+                meta = {"offsets": tuple(tuple(o) for o in fine_stencil.offsets),
+                        "grid_shape": tuple(fine_stencil.grid_shape)}
+                if isinstance(fine_stencil, VarStencilOperator):
+                    A = {"kind": dia_kind(device, dtype, fine_stencil.grid_shape),
+                         "coeffs": fine_stencil.coeffs.detach().cpu().numpy(), **meta}
+                else:
+                    A = {"kind": "stencil",
+                         "weights": fine_stencil.weights.detach().cpu().numpy(), **meta}
             else:
-                A = {"kind": "stencil",
-                     "weights": fine_stencil.weights.detach().cpu().numpy(), **meta}
-        else:
-            A = convert(hl.A)
-        lv = {"A": A, "transfer": None,
-              "sm": make_smoother_data(hl.A, params.smoother, w=hl.weight,
-                                       block_size=params.block_size,
-                                       jgs_weight=params.jgs_weight)}
-        for name in DEVICE_TRANSFERS:
-            lv[name] = convert(getattr(hl, name))
-        levels.append(lv)
-    coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
-    hh.arrays = (levels, coarse_Ainv)
-    return hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
+                A = convert(hl.A)
+            lv = {"A": A, "transfer": None,
+                  "sm": make_smoother_data(hl.A, params.smoother, w=hl.weight,
+                                           block_size=params.block_size,
+                                           jgs_weight=params.jgs_weight)}
+            for name in DEVICE_TRANSFERS:
+                lv[name] = convert(getattr(hl, name))
+            levels.append(lv)
+        coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
+        hh.arrays = (levels, coarse_Ainv)
+        return hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
 
 
 def build_hierarchy(

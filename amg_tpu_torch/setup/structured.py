@@ -44,6 +44,8 @@ from amg_tpu_torch.setup.rap import estimate_rho_dinv_a
 from amg_tpu_torch.smooth.smoothers import SmootherType, make_smoother_data
 from amg_tpu_torch.sparse.csr import CSRMatrix
 from amg_tpu_torch.sparse.stencil import StencilOperator, stencil_to_csr, tap_sum
+from amg_tpu_torch.utils import tracing
+from amg_tpu_torch.utils.tracing import setup_span
 
 
 @dataclass
@@ -75,6 +77,7 @@ class VarStencilOperator:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         # the diagonals in list order, as K5 sums them: every DIA form (K5,
         # its plain version, this one, its plane halo) rounds alike
+        tracing.count("spmv.var_stencil")
         return tap_sum(x.reshape(self.grid_shape), self.coeffs, self.offsets).reshape(x.shape)
 
     def __matmul__(self, x):
@@ -144,6 +147,7 @@ class DiaKernelOperator:
         """One K5 application on padded operands, of the full-precision
         planes unless `coeffs` is given (the single place the operator
         reaches its kernel)."""
+        tracing.count("spmv.dia")
         return var_stencil_kernel_padded(
             u_pad, self.coeffs if coeffs is None else coeffs, self.offsets, self.grid_shape,
             b_pad=b_pad, scale_pad=scale_pad, mode=mode,
@@ -250,6 +254,7 @@ class StructuredProlong:
         return (int(np.prod(self.fine_shape)), int(np.prod(self.coarse_shape)))
 
     def __matmul__(self, xc: torch.Tensor):
+        tracing.count("spmv.transfer")
         g = xc.reshape(self.coarse_shape)
         for d in range(g.ndim):
             if self.mats[d] is not None:
@@ -277,6 +282,7 @@ class StructuredRestrict:
         return (int(np.prod(self.coarse_shape)), int(np.prod(self.fine_shape)))
 
     def __matmul__(self, rf: torch.Tensor):
+        tracing.count("spmv.transfer")
         g = rf.reshape(self.fine_shape)
         for d in range(g.ndim):
             if self.mats[d] is not None:
@@ -477,6 +483,7 @@ def build_structured_hierarchy(
         smoother = SmootherType.L1_JACOBI
     sm_kw = _smoother_kw(params)
 
+    tracing.begin_setup()
     hh = HostHierarchy(params=params)
     shapes = [tuple(fine.grid_shape)]
     A_csr = stencil_to_csr(fine)
@@ -491,8 +498,11 @@ def build_structured_hierarchy(
     while True:
         shape = shapes[-1]
         hl = HostLevel(A=A_csr)
-        hl.weight = smooth_weight if smooth_weight is not None \
-            else _smoother_weight(A_csr, smoother)
+        if smooth_weight is not None:
+            hl.weight = smooth_weight
+        else:
+            with setup_span("rho", lvl):
+                hl.weight = _smoother_weight(A_csr, smoother)
         hh.levels.append(hl)
         sm = make_smoother_data(A_csr, smoother, w=hl.weight, **sm_kw)
         n = A_csr.n_rows
@@ -503,11 +513,12 @@ def build_structured_hierarchy(
         P_csr = _structured_P_csr(shape, cshape)
         R_csr = P_csr.transpose()
         hl.P, hl.R = P_csr, R_csr
-        acs = R_csr.matmul(A_csr).matmul(P_csr).to_scipy()
-        # drop numerically-zero fill
-        acs.data[np.abs(acs.data) < 1e-14 * np.abs(acs.data).max()] = 0.0
-        acs.eliminate_zeros()
-        Ac_csr = CSRMatrix.from_scipy(acs)
+        with setup_span("rap", lvl):
+            acs = R_csr.matmul(A_csr).matmul(P_csr).to_scipy()
+            # drop numerically-zero fill
+            acs.data[np.abs(acs.data) < 1e-14 * np.abs(acs.data).max()] = 0.0
+            acs.eliminate_zeros()
+            Ac_csr = CSRMatrix.from_scipy(acs)
         levels.append(
             {"A": A_arr, "sm": sm,
              "transfer": {"fine_shape": shape, "coarse_shape": cshape}}
@@ -541,9 +552,10 @@ def build_structured_hierarchy(
                          "grid_shape": cshape}
         shapes.append(cshape)
         lvl += 1
-    coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
-    hh.arrays = (levels, coarse_Ainv)
-    return hh, hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
+    with setup_span("device", sync=device):
+        coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
+        hh.arrays = (levels, coarse_Ainv)
+        return hh, hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
 
 
 def _dia_arrays(A: CSRMatrix, grid_shape):
@@ -659,6 +671,7 @@ def build_dia_structured_hierarchy(
     def dia_shape(ns):
         return tuple(ns[:-1]) + (ns[-1] * d,)
 
+    tracing.begin_setup()
     hh = HostHierarchy(params=params)
     node_shapes = [tuple(node_shape)]
     A_csr = A
@@ -670,8 +683,11 @@ def build_dia_structured_hierarchy(
         A_arr = {"kind": "dia" if use_kernel else "var", "coeffs": coeffs, "offsets": offsets,
                  "grid_shape": dia_shape(ns)}
         hl = HostLevel(A=A_csr)
-        hl.weight = smooth_weight if smooth_weight is not None \
-            else _smoother_weight(A_csr, smoother)
+        if smooth_weight is not None:
+            hl.weight = smooth_weight
+        else:
+            with setup_span("rho", lvl):
+                hl.weight = _smoother_weight(A_csr, smoother)
         hh.levels.append(hl)
         sm = make_smoother_data(A_csr, smoother, w=hl.weight, **sm_kw)
         n = A_csr.n_rows
@@ -702,18 +718,20 @@ def build_dia_structured_hierarchy(
             transfer["coarse_mask"] = (~mask_c).astype(np.float64)
         P_csr = CSRMatrix.from_scipy(Ps.tocsr())
         hl.P, hl.R = P_csr, P_csr.transpose()
-        Ac = (Ps.T @ A_csr.to_scipy() @ Ps).tocsr()
-        Ac.data[np.abs(Ac.data) < 1e-14 * np.abs(Ac.data).max()] = 0.0
-        Ac.eliminate_zeros()
-        if mask_f.any() and mask_c.any():
-            Ac = (Ac + sp.diags(mask_c.astype(np.float64))).tocsr()
+        with setup_span("rap", lvl):
+            Ac = (Ps.T @ A_csr.to_scipy() @ Ps).tocsr()
+            Ac.data[np.abs(Ac.data) < 1e-14 * np.abs(Ac.data).max()] = 0.0
+            Ac.eliminate_zeros()
+            if mask_f.any() and mask_c.any():
+                Ac = (Ac + sp.diags(mask_c.astype(np.float64))).tocsr()
         levels.append({"A": A_arr, "sm": sm, "transfer": transfer})
         A_csr = CSRMatrix.from_scipy(Ac)
         node_shapes.append(cns)
         lvl += 1
-    coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
-    hh.arrays = (levels, coarse_Ainv)
-    hier = hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
+    with setup_span("device", sync=device):
+        coarse_Ainv = np.linalg.inv(hh.levels[-1].A.to_dense())
+        hh.arrays = (levels, coarse_Ainv)
+        hier = hierarchy_from_arrays(levels, coarse_Ainv, dtype=dtype, device=device)
     if sweep_coef_dtype is not None:
         if not use_kernel:
             raise ValueError("sweep_coef_dtype narrows K5's sweep planes: it needs use_kernel")

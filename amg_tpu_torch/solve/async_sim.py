@@ -23,6 +23,10 @@ the permutation, SEMI mode's reads and the recurrences' scalars all live on
 the host, so the host knows which levels fire without a device read; a
 level that does not fire computes nothing (the reference computes every
 correction and masks it: the sum is the same).
+
+With tracing on (`utils/tracing.py`) a solve runs inside `amg.solve`, a
+firing level's correction inside `amg.correction:k` (with the cycle's phase
+spans), and the step's residual read inside `amg.host_read`.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import torch
 from amg_tpu_torch.solve.accel import _reducers
 from amg_tpu_torch.solve.cycles import CycleConfig, additive_correction
 from amg_tpu_torch.solve.driver import _check_device, nan_padded
+from amg_tpu_torch.utils import tracing
+from amg_tpu_torch.utils.tracing import traced
 
 
 @dataclass(frozen=True)
@@ -155,6 +161,7 @@ class GeneratorDraws:
         return torch.rand(n, generator=self._rows, dtype=dtype, device=device)
 
 
+@traced("solve")
 def async_solve(
     hier,
     cfg: CycleConfig,
@@ -393,7 +400,7 @@ def _async_loop(hier, cfg, acfg, b, x0, draws, tol, max_cycles):
             snap = x if sol else r_true
         ring[(k + 1) % W].copy_(snap)
         k += 1
-        rel = float(relnorm)  # the step's one host read
+        rel = tracing.host_read(relnorm)  # the step's one host read
         hist.append(rel)
     return AsyncResult(x=x, iters=k, rel_resnorm=relnorm,
                        history=nan_padded(hist, max_cycles + 1, b.dtype, b.device),

@@ -18,6 +18,12 @@
 
 Every level's additive correction is an independent function of r, which
 the asynchronous solvers (`solve/async_sim.py`) evaluate on stale reads.
+
+With tracing on (`utils/tracing.py`) every cycle opens the spans of its
+phases, per level k: `amg.smooth:k`, `amg.residual:k`, `amg.restrict:k`,
+`amg.prolong:k` and `amg.coarse`; an additive correction runs inside
+`amg.correction:k`, and its restriction and prolongation chains belong to
+`restrict:k` / `prolong:k`.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import torch
 from amg_tpu_torch.ops.vector import residual
 from amg_tpu_torch.setup.hierarchy import Hierarchy
 from amg_tpu_torch.smooth.smoothers import SmootherType, smooth, smooth_transpose
+from amg_tpu_torch.utils import tracing
+from amg_tpu_torch.utils.tracing import span
 
 
 class CycleType(enum.Enum):
@@ -79,21 +87,29 @@ def mult_vcycle(
     xs = [x]
     for k in range(L - 1):
         lv = hier.levels[k]
-        u = smooth(
-            lv.A, lv.sm, cfg.smoother, xs[k], fs[k],
-            num_sweeps=cfg.num_pre_sweeps, zero_guess=(k > 0),
-        )
+        with span("smooth", k):
+            u = smooth(
+                lv.A, lv.sm, cfg.smoother, xs[k], fs[k],
+                num_sweeps=cfg.num_pre_sweeps, zero_guess=(k > 0),
+            )
         xs[k] = u
-        fs.append(lv.R @ residual(lv.A, u, fs[k]))
+        with span("residual", k):
+            r = residual(lv.A, u, fs[k])
+        with span("restrict", k):
+            fs.append(lv.R @ r)
+        del r  # no residual kept alive through the levels below
         # coarse initial guess is zero (the zero-guess sweep never reads it;
         # with no pre-sweeps the residual does)
         xs.append(torch.zeros_like(fs[-1]))
-    xs[L - 1] = coarse_solve(hier, fs[L - 1])
+    with span("coarse"):
+        xs[L - 1] = coarse_solve(hier, fs[L - 1])
     for k in reversed(range(L - 1)):
         lv = hier.levels[k]
-        u = xs[k] + lv.P @ xs[k + 1]
-        xs[k] = smooth_transpose(lv.A, lv.sm, cfg.smoother, u, fs[k],
-                                 num_sweeps=cfg.num_post_sweeps)
+        with span("prolong", k):
+            u = xs[k] + lv.P @ xs[k + 1]
+        with span("smooth", k):
+            xs[k] = smooth_transpose(lv.A, lv.sm, cfg.smoother, u, fs[k],
+                                     num_sweeps=cfg.num_post_sweeps)
     return xs[0]
 
 
@@ -155,57 +171,78 @@ def additive_correction(
     """Level k's additive correction c_k(r), prolonged to level 0: the work
     of one grid group, which the asynchronous solvers evaluate on stale
     reads."""
-    L = hier.num_levels
-    cyc = cfg.cycle
-    if cyc == CycleType.AFACJ:
-        if k == 0:
-            return _add_level_smooth(hier, cfg, 0, r)
+    with span("correction", k):
+        L = hier.num_levels
+        cyc = cfg.cycle
+        if cyc == CycleType.AFACJ:
+            if k == 0:
+                with span("smooth", 0):
+                    return _add_level_smooth(hier, cfg, 0, r)
 
-        def hop(lvl, std, ideal):
-            lv = hier.levels[lvl]
-            ideal_m = getattr(lv, ideal)
-            return ideal_m if k - lvl > cfg.afacj_level and ideal_m is not None \
-                else getattr(lv, std)
+            def hop(lvl, std, ideal):
+                lv = hier.levels[lvl]
+                ideal_m = getattr(lv, ideal)
+                return ideal_m if k - lvl > cfg.afacj_level and ideal_m is not None \
+                    else getattr(lv, std)
 
-        rk = r
-        for lvl in range(k):
-            rk = hop(lvl, "R", "R_id") @ rk
-        if k == L - 1:
-            e = coarse_solve(hier, rk)
-        else:
-            e = _zero_guess_smooth(hier, cfg, k, rk, cfg.num_coarse_sweeps)
-        for lvl in reversed(range(k)):
-            e = hop(lvl, "P", "P_id") @ e
-        return e
-    if cyc in (CycleType.MULTADD, CycleType.BPX) or k == L - 1:
-        rk = _restrict_chain(hier, cfg, r, k)
-        if k == L - 1:
-            e = coarse_solve(hier, rk)
-        elif cyc == CycleType.BPX:
-            e = hier.levels[k].sm.inv_wscale * rk
-        else:
-            e = _add_level_smooth(hier, cfg, k, rk)
-        return _prolong_chain(hier, cfg, e, k)
-    if cyc == CycleType.AFACX:
-        # smooth at level k+1, prolong, re-residualise at level k, smooth
-        rk = _restrict_chain(hier, cfg, r, k)
-        lv = hier.levels[k]
-        rk1 = lv.R @ rk
-        if k + 1 == L - 1:
-            u_coarse = coarse_solve(hier, rk1)
-        else:
-            u_coarse = _zero_guess_smooth(hier, cfg, k + 1, rk1, cfg.num_coarse_sweeps)
-        r_fine = residual(lv.A, lv.P @ u_coarse, rk)
-        u_fine = _zero_guess_smooth(hier, cfg, k, r_fine, cfg.num_fine_sweeps)
-        return _prolong_chain(hier, cfg, u_fine, k)
-    raise ValueError(f"additive_correction does not support cycle {cyc}")
+            rk = r
+            with span("restrict", k):
+                for lvl in range(k):
+                    rk = hop(lvl, "R", "R_id") @ rk
+            if k == L - 1:
+                with span("coarse"):
+                    e = coarse_solve(hier, rk)
+            else:
+                with span("smooth", k):
+                    e = _zero_guess_smooth(hier, cfg, k, rk, cfg.num_coarse_sweeps)
+            with span("prolong", k):
+                for lvl in reversed(range(k)):
+                    e = hop(lvl, "P", "P_id") @ e
+            return e
+        if cyc in (CycleType.MULTADD, CycleType.BPX) or k == L - 1:
+            with span("restrict", k):
+                rk = _restrict_chain(hier, cfg, r, k)
+            if k == L - 1:
+                with span("coarse"):
+                    e = coarse_solve(hier, rk)
+            elif cyc == CycleType.BPX:
+                with span("smooth", k):
+                    e = hier.levels[k].sm.inv_wscale * rk
+            else:
+                with span("smooth", k):
+                    e = _add_level_smooth(hier, cfg, k, rk)
+            with span("prolong", k):
+                return _prolong_chain(hier, cfg, e, k)
+        if cyc == CycleType.AFACX:
+            # smooth at level k+1, prolong, re-residualise at level k, smooth
+            lv = hier.levels[k]
+            with span("restrict", k):
+                rk = _restrict_chain(hier, cfg, r, k)
+                rk1 = lv.R @ rk
+            if k + 1 == L - 1:
+                with span("coarse"):
+                    u_coarse = coarse_solve(hier, rk1)
+            else:
+                with span("smooth", k + 1):
+                    u_coarse = _zero_guess_smooth(hier, cfg, k + 1, rk1, cfg.num_coarse_sweeps)
+            with span("prolong", k):
+                e = lv.P @ u_coarse
+            with span("residual", k):
+                r_fine = residual(lv.A, e, rk)
+            del e  # not kept alive through the fine smoothing and the chain
+            with span("smooth", k):
+                u_fine = _zero_guess_smooth(hier, cfg, k, r_fine, cfg.num_fine_sweeps)
+            with span("prolong", k):
+                return _prolong_chain(hier, cfg, u_fine, k)
+        raise ValueError(f"additive_correction does not support cycle {cyc}")
 
 
 def sync_additive_cycle(
     hier: Hierarchy, cfg: CycleConfig, x: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
     """One synchronous additive cycle: x += sum_k c_k(b - A x)."""
-    r = residual(hier.levels[0].A, x, b)
+    with span("residual", 0):
+        r = residual(hier.levels[0].A, x, b)
     c = torch.zeros_like(x)
     for k in range(hier.num_levels):
         c = c + additive_correction(hier, cfg, r, k)
@@ -230,22 +267,30 @@ def mult_multadd_vcycle(
     xs = [x]
     for k in range(cml):
         lv = hier.levels[k]
-        u = smooth(lv.A, lv.sm, cfg.smoother, xs[k], fs[k],
-                   num_sweeps=cfg.num_pre_sweeps, zero_guess=(k > 0))
+        with span("smooth", k):
+            u = smooth(lv.A, lv.sm, cfg.smoother, xs[k], fs[k],
+                       num_sweeps=cfg.num_pre_sweeps, zero_guess=(k > 0))
         xs[k] = u
-        fs.append(lv.R @ residual(lv.A, u, fs[k]))
+        with span("residual", k):
+            r = residual(lv.A, u, fs[k])
+        with span("restrict", k):
+            fs.append(lv.R @ r)
+        del r  # no residual kept alive through the levels below
         xs.append(torch.zeros_like(fs[-1]))  # as in mult_vcycle
     sub = sub_hierarchy(hier, cml)
     inner_cfg = dataclasses.replace(cfg, cycle=CycleType.MULTADD)
     u = xs[cml]  # x at cml == 0, else zeros
-    for _ in range(max(cfg.num_inner_cycles, 1)):
-        u = sync_additive_cycle(sub, inner_cfg, u, fs[cml])
+    with tracing.levels_from(cml):
+        for _ in range(max(cfg.num_inner_cycles, 1)):
+            u = sync_additive_cycle(sub, inner_cfg, u, fs[cml])
     xs[cml] = u
     for k in reversed(range(cml)):
         lv = hier.levels[k]
-        u = xs[k] + lv.P @ xs[k + 1]
-        xs[k] = smooth_transpose(lv.A, lv.sm, cfg.smoother, u, fs[k],
-                                 num_sweeps=cfg.num_post_sweeps)
+        with span("prolong", k):
+            u = xs[k] + lv.P @ xs[k + 1]
+        with span("smooth", k):
+            xs[k] = smooth_transpose(lv.A, lv.sm, cfg.smoother, u, fs[k],
+                                     num_sweeps=cfg.num_post_sweeps)
     return xs[0]
 
 

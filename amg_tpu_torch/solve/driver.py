@@ -6,6 +6,11 @@ or the residual has grown 1e3x (the divergence guard), recording the
 NaN-padded per-cycle history. The reference runs the loop as one jitted
 lax.while_loop; here it is a host loop that reads one device scalar per
 cycle (the stop test), as `struct_solve` does.
+
+With tracing on (`utils/tracing.py`) a solve runs inside `amg.solve`, each
+cycle with its acceleration and its residual norm inside `amg.cycle` (PCG
+opens its own spans, `solve/krylov.py`), and the stop test's read inside
+`amg.host_read`; `cheby_setup` is the set-up phase `amg.setup.cheby`.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from amg_tpu_torch.solve.accel import (
 )
 from amg_tpu_torch.solve.cycles import CycleConfig, cycle_step
 from amg_tpu_torch.solve.krylov import pcg
+from amg_tpu_torch.utils import tracing
+from amg_tpu_torch.utils.tracing import span, traced
 
 
 class SolveResult(NamedTuple):
@@ -69,6 +76,7 @@ def _accelerated(hier, cfg, x, b, accel, coeffs, ch):
     return x_new, ch
 
 
+@traced("solve")
 def solve(
     hier,
     cfg: CycleConfig,
@@ -112,7 +120,8 @@ def solve(
     x = x0
     if no_resnorm:
         for _ in range(max_cycles):
-            x, ch = _accelerated(hier, cfg, x, b, accel, cheby_coeffs, ch)
+            with span("cycle"):
+                x, ch = _accelerated(hier, cfg, x, b, accel, cheby_coeffs, ch)
         relnorm = norm(residual(A0, x, b)) / safe_r0
         hist[max_cycles] = relnorm
         return SolveResult(x=x, iters=max_cycles, rel_resnorm=relnorm, history=hist)
@@ -120,11 +129,12 @@ def solve(
     relnorm = torch.ones((), dtype=b.dtype, device=device)
     rel = 1.0
     while it < max_cycles and rel > tol and rel < 1e3:
-        x, ch = _accelerated(hier, cfg, x, b, accel, cheby_coeffs, ch)
-        relnorm = norm(residual(A0, x, b)) / safe_r0
-        hist[it + 1] = relnorm
+        with span("cycle"):
+            x, ch = _accelerated(hier, cfg, x, b, accel, cheby_coeffs, ch)
+            relnorm = norm(residual(A0, x, b)) / safe_r0
+            hist[it + 1] = relnorm
         it += 1
-        rel = float(relnorm)
+        rel = tracing.host_read(relnorm)
     return SolveResult(x=x, iters=it, rel_resnorm=relnorm, history=hist)
 
 
@@ -148,11 +158,12 @@ def cheby_setup(
         return cycle_step(hier, cfg, torch.zeros_like(f), f)
 
     kw = {"seed": seed, "device": device, "mesh": hier.mesh}
-    if method == "lobpcg":
-        return estimate_eigs_lobpcg(apply_MinvA, n, dtype, num_iters=max(num_iters // 2, 6),
-                                    **kw)
-    if method == "lanczos":
-        return estimate_eigs_lanczos(apply_MinvA, n, dtype, num_iters=num_iters, **kw)
-    if method != "power":
-        raise ValueError(f"unknown cheby_eig method {method!r}")
-    return estimate_cycle_eigs(apply_MinvA, n, dtype, num_iters=num_iters, **kw)
+    with tracing.setup_span("cheby", sync=device):
+        if method == "lobpcg":
+            return estimate_eigs_lobpcg(apply_MinvA, n, dtype,
+                                        num_iters=max(num_iters // 2, 6), **kw)
+        if method == "lanczos":
+            return estimate_eigs_lanczos(apply_MinvA, n, dtype, num_iters=num_iters, **kw)
+        if method != "power":
+            raise ValueError(f"unknown cheby_eig method {method!r}")
+        return estimate_cycle_eigs(apply_MinvA, n, dtype, num_iters=num_iters, **kw)

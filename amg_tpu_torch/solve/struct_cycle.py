@@ -24,6 +24,13 @@ K2 is taken only where the taps are the uniform box. The reference takes it
 on every 27-offset level and its kernel then asserts the uniform box, so its
 struct_solve with >= 2 sweeps per side fails on a hierarchy with a constant
 RAP coarse level; here such a level chains K1, which is the same arithmetic.
+
+With tracing on (`utils/tracing.py`) the cycle opens the phase spans of
+`solve/cycles.py`: a fused kernel belongs to the phase it ends in order
+(K3, residual and restriction, to `amg.restrict:k`; K4, prolongation and
+the first post-sweep, to `amg.prolong:k`; the first pre-sweep with the
+residual norm to `amg.smooth:0`), and `struct_solve` opens `amg.solve`,
+`amg.cycle` and `amg.host_read` as `solve.driver.solve` does.
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ from amg_tpu_torch.setup.structured import StructuredRestrict
 from amg_tpu_torch.smooth.smoothers import JACOBI_TYPES
 from amg_tpu_torch.solve.cycles import CycleConfig, mult_vcycle
 from amg_tpu_torch.sparse.stencil import StencilOperator
+from amg_tpu_torch.utils import tracing
+from amg_tpu_torch.utils.tracing import span, traced
 
 
 class StructKernelSpec(NamedTuple):
@@ -173,11 +182,13 @@ def _fine_sweeps(spec, u_pad, b_pad, n: int):
 
 def _restrict_padded(spec, r_pad):
     """Full-weighting restriction padded fine -> flat coarse."""
+    tracing.count("spmv.transfer")
     return from_padded(restrict_padded(r_pad, spec.grid_shape), coarse_shape_of(spec.grid_shape))
 
 
 def _prolong_padded(spec, ec):
     """Trilinear prolongation flat coarse -> padded fine (zero shell)."""
+    tracing.count("spmv.transfer")
     cs = coarse_shape_of(spec.grid_shape)
     return prolong_padded(to_padded(ec, cs), spec.grid_shape)
 
@@ -196,26 +207,30 @@ def _fused_correct_and_post(hier, cfg, specs, lvl, spec, x_pad, b_pad):
     residual+restrict (K3), recursive coarse correction, fused
     prolong+first-post-sweep (K4), remaining post sweeps."""
     cs = coarse_shape_of(spec.grid_shape)
-    rc_pad = residual_restrict_padded(
-        x_pad, b_pad, spec.weights, spec.grid_shape, spec.offsets
-    )
+    with span("restrict", lvl):
+        rc_pad = residual_restrict_padded(
+            x_pad, b_pad, spec.weights, spec.grid_shape, spec.offsets
+        )
     ec_flat = ec_pad = None
     if _next_fused(hier, cfg, specs, lvl):
         ec_pad = _deep_correct_fused(hier, cfg, specs, lvl + 1, rc_pad)
     else:
         ec_flat = _deep_correct(hier, cfg, specs, lvl + 1, from_padded(rc_pad, cs))
     if cfg.num_post_sweeps >= 1:
-        if ec_pad is None:
-            ec_pad = to_padded(ec_flat, cs)
-        x_pad = prolong_sweep_padded(
-            x_pad, b_pad, ec_pad, spec.weights, spec.grid_shape, spec.offsets,
-            alpha=spec.alpha,
-            scale_pad=None if spec.alpha != 0.0 else spec.scale_pad,
-        )
-        return _fine_sweeps(spec, x_pad, b_pad, cfg.num_post_sweeps - 1)
-    if ec_flat is None:
-        ec_flat = from_padded(ec_pad, cs)
-    return x_pad + _prolong_padded(spec, ec_flat)
+        with span("prolong", lvl):
+            if ec_pad is None:
+                ec_pad = to_padded(ec_flat, cs)
+            x_pad = prolong_sweep_padded(
+                x_pad, b_pad, ec_pad, spec.weights, spec.grid_shape, spec.offsets,
+                alpha=spec.alpha,
+                scale_pad=None if spec.alpha != 0.0 else spec.scale_pad,
+            )
+        with span("smooth", lvl):
+            return _fine_sweeps(spec, x_pad, b_pad, cfg.num_post_sweeps - 1)
+    with span("prolong", lvl):
+        if ec_flat is None:
+            ec_flat = from_padded(ec_pad, cs)
+        return x_pad + _prolong_padded(spec, ec_flat)
 
 
 def _deep_correct_fused(hier, cfg, specs, lvl, rc_pad):
@@ -226,21 +241,25 @@ def _deep_correct_fused(hier, cfg, specs, lvl, rc_pad):
         # x = s*b, folded into both transfer kernels
         cs = coarse_shape_of(spec.grid_shape)
         sp = None if spec.alpha != 0.0 else spec.scale_pad
-        rc2_pad = residual_restrict_padded(
-            None, rc_pad, spec.weights, spec.grid_shape, spec.offsets,
-            zero_guess=True, scale_pad=sp, alpha=spec.alpha,
-        )
+        with span("restrict", lvl):
+            rc2_pad = residual_restrict_padded(
+                None, rc_pad, spec.weights, spec.grid_shape, spec.offsets,
+                zero_guess=True, scale_pad=sp, alpha=spec.alpha,
+            )
         if _next_fused(hier, cfg, specs, lvl):
             ec_pad = _deep_correct_fused(hier, cfg, specs, lvl + 1, rc2_pad)
         else:
             ec = _deep_correct(hier, cfg, specs, lvl + 1, from_padded(rc2_pad, cs))
             ec_pad = to_padded(ec, cs)
-        x_pad = prolong_sweep_padded(
-            None, rc_pad, ec_pad, spec.weights, spec.grid_shape, spec.offsets,
-            alpha=spec.alpha, scale_pad=sp, zero_guess=True,
-        )
-        return _fine_sweeps(spec, x_pad, rc_pad, cfg.num_post_sweeps - 1)
-    x_pad = _fine_sweeps(spec, torch.zeros_like(rc_pad), rc_pad, cfg.num_pre_sweeps)
+        with span("prolong", lvl):
+            x_pad = prolong_sweep_padded(
+                None, rc_pad, ec_pad, spec.weights, spec.grid_shape, spec.offsets,
+                alpha=spec.alpha, scale_pad=sp, zero_guess=True,
+            )
+        with span("smooth", lvl):
+            return _fine_sweeps(spec, x_pad, rc_pad, cfg.num_post_sweeps - 1)
+    with span("smooth", lvl):
+        x_pad = _fine_sweeps(spec, torch.zeros_like(rc_pad), rc_pad, cfg.num_pre_sweeps)
     return _fused_correct_and_post(hier, cfg, specs, lvl, spec, x_pad, rc_pad)
 
 
@@ -248,22 +267,31 @@ def _deep_correct(hier: Hierarchy, cfg: CycleConfig, specs, lvl, rc):
     """Coarse-grid correction for flat rhs rc at level lvl >= 1: constant
     levels through the padded kernels, the rest through mult_vcycle."""
     if lvl == hier.num_levels - 1:
-        return hier.coarse_Ainv @ rc
+        with span("coarse"):
+            return hier.coarse_Ainv @ rc
     spec = specs.get(lvl)
     if spec is None:
         sub = hier._replace(levels=hier.levels[lvl:])
-        return mult_vcycle(sub, cfg, torch.zeros_like(rc), rc)
+        with tracing.levels_from(lvl):
+            return mult_vcycle(sub, cfg, torch.zeros_like(rc), rc)
     if _can_fuse(hier, lvl, spec) or _can_fuse_zg(hier, lvl, spec, cfg):
         rc_pad = to_padded(rc, spec.grid_shape)
         return from_padded(
             _deep_correct_fused(hier, cfg, specs, lvl, rc_pad), spec.grid_shape
         )
     b_pad = to_padded(rc, spec.grid_shape)
-    x_pad = _fine_sweeps(spec, torch.zeros_like(b_pad), b_pad, cfg.num_pre_sweeps)
-    r_pad = _fine(spec, "residual", x_pad, b_pad)
-    ec = _deep_correct(hier, cfg, specs, lvl + 1, _restrict_padded(spec, r_pad))
-    x_pad = x_pad + _prolong_padded(spec, ec)
-    x_pad = _fine_sweeps(spec, x_pad, b_pad, cfg.num_post_sweeps)
+    with span("smooth", lvl):
+        x_pad = _fine_sweeps(spec, torch.zeros_like(b_pad), b_pad, cfg.num_pre_sweeps)
+    with span("residual", lvl):
+        r_pad = _fine(spec, "residual", x_pad, b_pad)
+    with span("restrict", lvl):
+        rc1 = _restrict_padded(spec, r_pad)
+    ec = _deep_correct(hier, cfg, specs, lvl + 1, rc1)
+    del rc1
+    with span("prolong", lvl):
+        x_pad = x_pad + _prolong_padded(spec, ec)
+    with span("smooth", lvl):
+        x_pad = _fine_sweeps(spec, x_pad, b_pad, cfg.num_post_sweeps)
     return from_padded(x_pad, spec.grid_shape)
 
 
@@ -278,23 +306,28 @@ def _finish_cycle(hier, cfg, spec, cspecs, y_pad, b_pad):
     if _struct_transfers(hier) and _can_fuse(hier, 0, spec):
         return _fused_correct_and_post(hier, cfg, cspecs, 0, spec, y_pad, b_pad)
     lv0 = hier.levels[0]
-    r_pad = _fine(spec, "residual", y_pad, b_pad)
-    if _struct_transfers(hier):
-        rc = _restrict_padded(spec, r_pad)
-    else:
-        rc = lv0.R @ from_padded(r_pad, spec.grid_shape)
+    with span("residual", 0):
+        r_pad = _fine(spec, "residual", y_pad, b_pad)
+    with span("restrict", 0):
+        if _struct_transfers(hier):
+            rc = _restrict_padded(spec, r_pad)
+        else:
+            rc = lv0.R @ from_padded(r_pad, spec.grid_shape)
     ec = _deep_correct(hier, cfg, cspecs, 1, rc)
-    if _struct_transfers(hier):
-        y_pad = y_pad + _prolong_padded(spec, ec)
-    else:
-        y_pad = y_pad + to_padded(lv0.P @ ec, spec.grid_shape)
-    return _fine_sweeps(spec, y_pad, b_pad, cfg.num_post_sweeps)
+    with span("prolong", 0):
+        if _struct_transfers(hier):
+            y_pad = y_pad + _prolong_padded(spec, ec)
+        else:
+            y_pad = y_pad + to_padded(lv0.P @ ec, spec.grid_shape)
+    with span("smooth", 0):
+        return _fine_sweeps(spec, y_pad, b_pad, cfg.num_post_sweeps)
 
 
 def struct_vcycle(hier: Hierarchy, cfg: CycleConfig, spec: StructKernelSpec,
                   x_pad, b_pad, coarse_specs=None):
     """One V-cycle with the level-0 state in padded layout."""
-    x_pad = _fine_sweeps(spec, x_pad, b_pad, cfg.num_pre_sweeps)
+    with span("smooth", 0):
+        x_pad = _fine_sweeps(spec, x_pad, b_pad, cfg.num_pre_sweeps)
     return _finish_cycle(hier, cfg, spec, coarse_specs or {}, x_pad, b_pad)
 
 
@@ -304,14 +337,16 @@ def _presweep_norm(spec, cfg, x_pad, b_pad):
     norm comes from a plain residual pass and the iterate is returned as it
     is."""
     if cfg.num_pre_sweeps == 0:
-        r = from_padded(_fine(spec, "residual", x_pad, b_pad), spec.grid_shape)
-        return x_pad, torch.sqrt(torch.sum(r * r))
-    y_pad, parts = stencil_kernel_padded(
-        x_pad, b_pad, spec.weights, spec.grid_shape, spec.offsets,
-        alpha=0.0, scale_pad=spec.scale_pad, mode="sweep_vec_norm",
-    )
-    y_pad = _fine_sweeps(spec, y_pad, b_pad, cfg.num_pre_sweeps - 1)
-    return y_pad, torch.sqrt(torch.sum(parts))
+        with span("residual", 0):
+            r = from_padded(_fine(spec, "residual", x_pad, b_pad), spec.grid_shape)
+            return x_pad, torch.sqrt(torch.sum(r * r))
+    with span("smooth", 0):
+        y_pad, parts = stencil_kernel_padded(
+            x_pad, b_pad, spec.weights, spec.grid_shape, spec.offsets,
+            alpha=0.0, scale_pad=spec.scale_pad, mode="sweep_vec_norm",
+        )
+        y_pad = _fine_sweeps(spec, y_pad, b_pad, cfg.num_pre_sweeps - 1)
+        return y_pad, torch.sqrt(torch.sum(parts))
 
 
 class StructSolveResult(NamedTuple):
@@ -341,6 +376,7 @@ def _prepare(hier: Hierarchy, cfg: CycleConfig, b, device):
     return make_struct_spec(hier), make_coarse_specs(hier), b
 
 
+@traced("solve")
 def struct_solve(
     hier: Hierarchy,
     cfg: CycleConfig,
@@ -379,12 +415,13 @@ def struct_solve(
             # stagnation guard: stop when a cycle no longer reduces the
             # residual by > 1%
             go = go & ~(relnorm > 0.99 * hist[k - 1])
-        if not bool(go.item()):
+        if not tracing.host_read(go, bool):
             break
-        x_pad = _finish_cycle(hier, cfg, spec, cspecs, y_pad, b_pad)  # x_{k+1}
-        y_pad, rn = _presweep_norm(spec, cfg, x_pad, b_pad)  # starts cycle k+2
-        relnorm = rn / safe_r0
-        hist[k + 1] = relnorm
+        with span("cycle"):
+            x_pad = _finish_cycle(hier, cfg, spec, cspecs, y_pad, b_pad)  # x_{k+1}
+            y_pad, rn = _presweep_norm(spec, cfg, x_pad, b_pad)  # starts cycle k+2
+            relnorm = rn / safe_r0
+            hist[k + 1] = relnorm
         k += 1
     return StructSolveResult(
         x=from_padded(x_pad, gs), iters=k, rel_resnorm=relnorm, history=hist

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.dtypes import INDEX_DTYPE
+from amg_tpu_torch.utils import tracing
 
 
 @dataclass
@@ -161,6 +162,7 @@ def choose_bsr_shape(
 
 def bsr_spmv(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x: block gather, then one batched tile-by-segment product."""
+    tracing.count("spmv.bsr")
     n, m = a.shape
     bn = a.bn
     ncb = -(-m // bn)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.dtypes import INDEX_DTYPE
+from amg_tpu_torch.utils import tracing
 
 
 @dataclass
@@ -75,5 +76,6 @@ def ell_from_csr(csr, k: int | None = None, dtype=torch.float64, device="cpu") -
 
 def ell_spmv(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x: gather + multiply + reduce over the slot axis."""
+    tracing.count("spmv.ell")
     g = torch.index_select(x, 0, a.cols.reshape(-1)).view(a.cols.shape)
     return (a.vals * g).sum(dim=1)

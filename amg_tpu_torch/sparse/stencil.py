@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from amg_tpu_torch.utils import tracing
+
 
 @dataclass
 class StencilOperator:
@@ -71,6 +73,7 @@ def tap_sum(grid: torch.Tensor, coeffs, offsets) -> torch.Tensor:
 
 def stencil_matvec(a: StencilOperator, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x via shifted-slice accumulation on the grid view."""
+    tracing.count("spmv.stencil")
     return tap_sum(x.reshape(a.grid_shape), a.weights, a.offsets).reshape(x.shape)
 
 

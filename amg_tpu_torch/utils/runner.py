@@ -741,7 +741,7 @@ def solve_experiment(exp: Experiment, draws=None) -> SolveStats:
         and opts.num_devices <= 1
         and opts.solver in ("mult", "multadd", "afacx", "afacj", "bpx")
     ):
-        # per-phase instrumented re-run (the segmented cycle)
+        # per-phase re-run of the production cycle, read from its spans
         from amg_tpu_torch.utils.phases import profile_phases
 
         stats.phase = profile_phases(

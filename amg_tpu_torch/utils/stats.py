@@ -4,8 +4,8 @@ keys as the reference's drivers (-oneline_output).
 
 A solve reports setup wall time | solve wall time | cycles | per-cycle
 residual history | grid-wait stats (async) | per-level hierarchy stats;
-`-print_level_stats` adds the segmented per-phase profile
-(`utils/phases.py`). Kernel-level breakdowns on the card come from
+`-print_level_stats` adds the per-phase profile read from
+the cycle's spans (`utils/phases.py`). Kernel-level breakdowns on the card come from
 torch.profiler (`chip_smoke.py`).
 """
 

@@ -418,31 +418,22 @@ def kernel_phase(hier64, device):
 
 
 def reset_counts():
-    from amg_tpu_torch.ops.stencil import stencil_kernel_padded
-    from amg_tpu_torch.ops.transfer import prolong_sweep_padded, residual_restrict_padded
-    from amg_tpu_torch.ops.var_stencil import var_stencil_kernel_padded
+    from amg_tpu_torch.utils import tracing
 
-    for fn in (stencil_kernel_padded, residual_restrict_padded, prolong_sweep_padded,
-               var_stencil_kernel_padded):
-        fn.launches = 0
-    stencil_kernel_padded.tap_launches = 0
-    stencil_kernel_padded.k2_launches = 0
-    var_stencil_kernel_padded.bf16_launches = 0
+    tracing.reset()
 
 
 def read_counts():
-    from amg_tpu_torch.ops.stencil import stencil_kernel_padded
-    from amg_tpu_torch.ops.transfer import prolong_sweep_padded, residual_restrict_padded
-    from amg_tpu_torch.ops.var_stencil import var_stencil_kernel_padded
+    from amg_tpu_torch.utils import tracing
 
     return {
-        "K1": stencil_kernel_padded.launches,
-        "K1 taps": stencil_kernel_padded.tap_launches,
-        "K2": stencil_kernel_padded.k2_launches,
-        "K3": residual_restrict_padded.launches,
-        "K4": prolong_sweep_padded.launches,
-        "K5": var_stencil_kernel_padded.launches,
-        "K5 bf16": var_stencil_kernel_padded.bf16_launches,
+        "K1": tracing.counter("stencil_kernel_padded.launches"),
+        "K1 taps": tracing.counter("stencil_kernel_padded.tap_launches"),
+        "K2": tracing.counter("stencil_kernel_padded.k2_launches"),
+        "K3": tracing.counter("residual_restrict_padded.launches"),
+        "K4": tracing.counter("prolong_sweep_padded.launches"),
+        "K5": tracing.counter("var_stencil_kernel_padded.launches"),
+        "K5 bf16": tracing.counter("var_stencil_kernel_padded.bf16_launches"),
     }
 
 

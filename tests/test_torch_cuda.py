@@ -47,6 +47,9 @@ import torch
 from amg_tpu_torch.ops import stencil as ts
 from amg_tpu_torch.ops import transfer as tt
 from amg_tpu_torch.ops import var_stencil as tvs
+from amg_tpu_torch.utils import tracing
+
+from torch_parity import launches
 
 pytestmark = pytest.mark.cuda
 
@@ -113,10 +116,11 @@ def _k1_taps_modes(u, b, s, w, offs, gs, plan=None):
     dtype = u.dtype
     for mode in ts.MODES:
         if plan is None:
-            before = (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.tap_launches)
+            before = launches("stencil_kernel_padded.launches",
+                              "stencil_kernel_padded.tap_launches")
             got = ts.stencil_kernel_padded(u, b, w, gs, offs, alpha=0.03, scale_pad=s, mode=mode)
-            assert (ts.stencil_kernel_padded.launches,
-                    ts.stencil_kernel_padded.tap_launches) == (before[0] + 1, before[1] + 1)
+            assert launches("stencil_kernel_padded.launches",
+                            "stencil_kernel_padded.tap_launches") == (before[0] + 1, before[1] + 1)
         else:
             got = ts._launch_taps(u, None if mode == "spmv" else b,
                                   s if "vec" in mode else None, taps, gs, 0.03, mode, plan)
@@ -201,11 +205,11 @@ def test_k1_taps_refuse_a_misaligned_view(device):
     shape = ts.padded_shape(gs)
     bad = torch.zeros(int(np.prod(shape)) + 1, device=device)[1:].view(shape)
     good = torch.zeros(shape, device=device)
-    before = ts.stencil_kernel_padded.launches
+    before = tracing.counter("stencil_kernel_padded.launches")
     for u, b, s in ((bad, good, good), (good, bad, good), (good, good, bad)):
         with pytest.raises(ValueError, match="16-byte"):
             ts.stencil_kernel_padded(u, b, w, gs, offs, scale_pad=s, mode="sweep_vec")
-    assert ts.stencil_kernel_padded.launches == before
+    assert tracing.counter("stencil_kernel_padded.launches") == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
@@ -219,9 +223,9 @@ def test_k1_box_matches_plain(device, gs, dtype):
     u, b = _pad(rng, gs, dtype, device), _pad(rng, gs, dtype, device)
     s = 0.02 * _pad(rng, gs, dtype, device)
     for mode in ts.MODES:
-        before = ts.stencil_kernel_padded.launches
+        before = tracing.counter("stencil_kernel_padded.launches")
         got = ts.stencil_kernel_padded(u, b, w, gs, offs, alpha=0.03, scale_pad=s, mode=mode)
-        assert ts.stencil_kernel_padded.launches == before + 1
+        assert tracing.counter("stencil_kernel_padded.launches") == before + 1
         want = ts.stencil_plain(u, b, taps, gs, 0.03, s if "vec" in mode else None, mode)
         if mode == "sweep_vec_norm":
             (got, gn), (want, wn) = got, want
@@ -269,13 +273,14 @@ def test_box_march_refuses_a_misaligned_view(device):
     flat = torch.zeros(int(np.prod(shape)) + 1, device=device)
     bad = flat[1:].view(shape)
     good = torch.zeros(shape, device=device)
-    before = (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.k2_launches)
+    before = launches("stencil_kernel_padded.launches", "stencil_kernel_padded.k2_launches")
     for u, b, s in ((bad, good, good), (good, bad, good), (good, good, bad)):
         with pytest.raises(ValueError, match="16-byte"):
             ts.stencil_kernel_padded(u, b, w, gs, offs, scale_pad=s, mode="sweep_vec")
         with pytest.raises(ValueError, match="16-byte"):
             ts.stencil_kernel_padded(u, b, w, gs, offs, scale_pad=s, mode="sweep2_vec")
-    assert (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.k2_launches) == before
+    assert launches("stencil_kernel_padded.launches",
+                    "stencil_kernel_padded.k2_launches") == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
@@ -318,10 +323,10 @@ def _k4_modes(u, b, s, ec, w, offs, gs, plan=None):
         for alpha in (0.0, 0.03):
             sa = None if alpha else s
             if plan is None:
-                before = tt.prolong_sweep_padded.launches
+                before = tracing.counter("prolong_sweep_padded.launches")
                 got = tt.prolong_sweep_padded(u, b, ec, w, gs, offs, alpha=alpha,
                                               scale_pad=sa, zero_guess=zg)
-                assert tt.prolong_sweep_padded.launches == before + 1
+                assert tracing.counter("prolong_sweep_padded.launches") == before + 1
             else:
                 got = tt._launch_k4(None if zg else u, b, sa, ec, taps, gs, alpha, zg, plan)
             yield zg, alpha, got, tt.prolong_sweep_plain(u, b, ec, taps, gs, alpha, sa, zg)
@@ -382,7 +387,7 @@ def test_k4_refuses_a_misaligned_view(device):
     cshape = ts.padded_shape(tt.coarse_shape_of(gs))
     ec = torch.zeros(cshape, device=device)
     bad_ec = torch.zeros(int(np.prod(cshape)) + 1, device=device)[1:].view(cshape)
-    before = tt.prolong_sweep_padded.launches
+    before = tracing.counter("prolong_sweep_padded.launches")
     for w, offs in (_box(), _taps(5)):
         for x, b, s in ((bad, good, good), (good, bad, good), (good, good, bad)):
             with pytest.raises(ValueError, match="16-byte"):
@@ -391,7 +396,7 @@ def test_k4_refuses_a_misaligned_view(device):
             tt.prolong_sweep_padded(None, good, ec, w, gs, offs, scale_pad=bad, zero_guess=True)
         with pytest.raises(ValueError, match="16-byte"):
             tt.prolong_sweep_padded(good, good, bad_ec, w, gs, offs, scale_pad=good)
-    assert tt.prolong_sweep_padded.launches == before
+    assert tracing.counter("prolong_sweep_padded.launches") == before
 
 
 # K3's launch plan at its edges: a coarse side smaller than one 16x8 tile;
@@ -415,10 +420,10 @@ def test_k3_matches_plain_at_plan_edges(device, gs, dtype):
     s = 0.02 * _pad(rng, gs, dtype, device)
     for zg, alpha in ((False, 0.0), (True, 0.0), (True, 0.03)):
         sa = None if alpha else s
-        before = tt.residual_restrict_padded.launches
+        before = tracing.counter("residual_restrict_padded.launches")
         got = tt.residual_restrict_padded(u, b, w, gs, offs, zero_guess=zg,
                                           scale_pad=sa, alpha=alpha)
-        assert tt.residual_restrict_padded.launches == before + 1
+        assert tracing.counter("residual_restrict_padded.launches") == before + 1
         want = tt.residual_restrict_plain(u, b, taps, gs, zg, sa, alpha)
         _check(got, want, cs, dtype)
 
@@ -433,10 +438,10 @@ def test_k3_refuses_a_misaligned_view(device):
     flat = torch.zeros(n + 1, device=device)
     b = flat[1:].view(shape)
     u = torch.zeros(shape, device=device)
-    before = tt.residual_restrict_padded.launches
+    before = tracing.counter("residual_restrict_padded.launches")
     with pytest.raises(ValueError, match="16-byte"):
         tt.residual_restrict_padded(u, b, w, gs, offs)
-    assert tt.residual_restrict_padded.launches == before
+    assert tracing.counter("residual_restrict_padded.launches") == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
@@ -450,9 +455,9 @@ def test_k2_matches_plain_and_the_k1_chain(device, gs, dtype):
     for mode in ts.SWEEPK_MODES:
         k, vec = int(mode[5]), mode.endswith("_vec")
         sa = s if vec else None
-        before = ts.stencil_kernel_padded.k2_launches
+        before = tracing.counter("stencil_kernel_padded.k2_launches")
         got = ts.stencil_kernel_padded(u, b, w, gs, offs, alpha=0.03, scale_pad=sa, mode=mode)
-        assert ts.stencil_kernel_padded.k2_launches == before + 1
+        assert tracing.counter("stencil_kernel_padded.k2_launches") == before + 1
         _check(got, ts.sweepk_plain(u, b, taps, gs, k, 0.03, sa), gs, dtype)
         chain = u
         for _ in range(k):
@@ -478,9 +483,9 @@ def test_k5_matches_plain(device, gs, offsets, dtype):
     c = torch.from_numpy(rng.standard_normal((len(offsets),) + gs)).to(device=device, dtype=dtype)
     u, b, s = pad(rng.random(n)), pad(rng.random(n)), pad(0.1 * rng.random(n))
     for mode in tvs.MODES:
-        before = tvs.var_stencil_kernel_padded.launches
+        before = tracing.counter("var_stencil_kernel_padded.launches")
         got = tvs.var_stencil_kernel_padded(u, c, offsets, gs, b_pad=b, scale_pad=s, mode=mode)
-        assert tvs.var_stencil_kernel_padded.launches == before + 1
+        assert tracing.counter("var_stencil_kernel_padded.launches") == before + 1
         want = tvs.var_stencil_plain(u, c, offsets, gs, b, s if mode == "sweep" else None, mode)
         torch.cuda.synchronize()
         gi, wi = tvs.var_from_padded(got, gs, h).double(), tvs.var_from_padded(want, gs, h).double()
@@ -509,10 +514,11 @@ def test_k5_bf16_sweep_equals_plain(device, gs, offsets, dtype):
     c = torch.from_numpy(rng.standard_normal((len(offsets),) + gs)).to(device=device,
                                                                        dtype=torch.bfloat16)
     u, b, s = pad(rng.random(n)), pad(rng.random(n)), pad(0.1 * rng.random(n))
-    before = (tvs.var_stencil_kernel_padded.launches, tvs.var_stencil_kernel_padded.bf16_launches)
+    before = launches("var_stencil_kernel_padded.launches",
+                      "var_stencil_kernel_padded.bf16_launches")
     got = tvs.var_stencil_kernel_padded(u, c, offsets, gs, b_pad=b, scale_pad=s, mode="sweep")
-    assert (tvs.var_stencil_kernel_padded.launches,
-            tvs.var_stencil_kernel_padded.bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert launches("var_stencil_kernel_padded.launches",
+                    "var_stencil_kernel_padded.bf16_launches") == (before[0] + 1, before[1] + 1)
     want = tvs.var_stencil_plain(u, c, offsets, gs, b, s, "sweep")
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
@@ -723,11 +729,12 @@ def test_jgs_dia_cycle_on_the_card_equals_the_cpu(device, dtype):
     cfg = CycleConfig(smoother=SmootherType.HYBRID_JGS, num_pre_sweeps=2, num_post_sweeps=2)
     b = torch.from_numpy(np.random.default_rng(16).random(prob.n)).to(dtype)
     want = cycle_step(h_cpu, cfg, torch.zeros_like(b), b)
-    before = tvs.var_stencil_kernel_padded.launches
+    before = tracing.counter("var_stencil_kernel_padded.launches")
     bg = b.to(device)
     got = cycle_step(h_gpu, cfg, torch.zeros_like(bg), bg)
     torch.cuda.synchronize()
-    assert tvs.var_stencil_kernel_padded.launches - before >= 4 * (h_gpu.num_levels - 1)
+    assert (tracing.counter("var_stencil_kernel_padded.launches") - before
+            >= 4 * (h_gpu.num_levels - 1))
     err = float((got.double().cpu() - want.double()).abs().max())
     assert err <= TOL[dtype] * float(want.double().abs().max())
 
@@ -819,11 +826,13 @@ def test_run_experiment_struct_on_the_card_equals_the_cpu(device):
 
     opts = dict(problem="27pt", n=64, hierarchy="structured")
     cpu = run_experiment(SolverOptions(**opts), device="cpu")
-    before = (ts.stencil_kernel_padded.launches, tt.residual_restrict_padded.launches,
-              tt.prolong_sweep_padded.launches)
+    before = launches("stencil_kernel_padded.launches",
+                      "residual_restrict_padded.launches",
+                      "prolong_sweep_padded.launches")
     gpu = run_experiment(SolverOptions(**opts), device=device)
-    after = (ts.stencil_kernel_padded.launches, tt.residual_restrict_padded.launches,
-             tt.prolong_sweep_padded.launches)
+    after = launches("stencil_kernel_padded.launches",
+                     "residual_restrict_padded.launches",
+                     "prolong_sweep_padded.launches")
     assert all(a > b for a, b in zip(after, before)), (before, after)
     assert gpu.cycles == cpu.cycles and gpu.rel_resnorm <= 1e-8
     assert gpu.level_n == cpu.level_n and gpu.level_nnz == cpu.level_nnz
@@ -847,9 +856,9 @@ def test_run_experiment_config10_on_the_card(device):
                            "config10_elasticity_dia_mixed.json")) as f:
         g = json.load(f)
     c = g["config"]
-    before = tvs.var_stencil_kernel_padded.launches
+    before = tracing.counter("var_stencil_kernel_padded.launches")
     st = run_experiment(SolverOptions(**c), device=device)
-    assert tvs.var_stencil_kernel_padded.launches > before
+    assert tracing.counter("var_stencil_kernel_padded.launches") > before
     assert st.level_n == g["level_n"] and st.level_nnz == g["level_nnz"]
     assert abs(st.cycles - g["cycles"]) <= 1
     prob = elasticity_beam(nx=c["nx"], ny=c["ny"], nz=c["nz"], bc=c["elast_bc"])

@@ -38,7 +38,7 @@ import amg_tpu_torch.solve.struct_cycle as tsc
 from amg_tpu_torch.ops import stencil as ts
 from amg_tpu_torch.solve.cycles import CycleConfig, mult_vcycle
 
-from torch_parity import port_hierarchy
+from torch_parity import launches, port_hierarchy
 
 # one intra-op thread: the suite runs several worker processes at once, and
 # idle OpenMP threads spinning in each would take cores from the others
@@ -124,11 +124,12 @@ def test_k2_needs_the_uniform_box_and_counts_no_cpu_launch():
     skewed = (weights[0] * 1.5,) + weights[1:]
     with pytest.raises(ValueError, match="uniform 27-point box"):
         ts.stencil_kernel_padded(up, bp, skewed, gs, offsets, alpha=0.03, mode="sweep2")
-    before = (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.k2_launches)
+    before = launches("stencil_kernel_padded.launches", "stencil_kernel_padded.k2_launches")
     got = ts.stencil_kernel_padded(up, bp, weights, gs, offsets, alpha=0.03, mode="sweep3")
     want = ts.sweepk_plain(up, bp, ts.taps_of(weights, offsets), gs, 3, alpha=0.03)
     assert torch.equal(got, want)
-    assert (ts.stencil_kernel_padded.launches, ts.stencil_kernel_padded.k2_launches) == before
+    assert launches("stencil_kernel_padded.launches",
+                    "stencil_kernel_padded.k2_launches") == before
 
 
 @pytest.mark.parametrize("post", [2, 4])

@@ -27,6 +27,8 @@ from amg_tpu.problems import laplacian_3d_27pt
 from amg_tpu_torch.ops import stencil as ts
 from amg_tpu_torch.ops import transfer as tt
 
+from torch_parity import launches
+
 # one intra-op thread: the suite runs several worker processes at once, and
 # idle OpenMP threads spinning in each would take cores from the others
 torch.set_num_threads(1)
@@ -224,11 +226,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tt.prolong_sweep_padded(up, bp, ecp.float(), weights, gs, offsets, scale_pad=sp_)
     with pytest.raises(TypeError):
         tt.prolong_sweep_padded(up, bp, ecp, weights, gs, offsets, scale_pad=None)
-    before = (tt.residual_restrict_padded.launches, tt.prolong_sweep_padded.launches)
+    before = launches("residual_restrict_padded.launches", "prolong_sweep_padded.launches")
     tt.residual_restrict_padded(up, bp, weights, gs, offsets)
     tt.prolong_sweep_padded(up, bp, ecp, weights, gs, offsets, scale_pad=sp_)
-    assert (tt.residual_restrict_padded.launches,
-            tt.prolong_sweep_padded.launches) == before
+    assert launches("residual_restrict_padded.launches", "prolong_sweep_padded.launches") == before
 
 
 @pytest.mark.parametrize("dtype,zero_guess,scaled,want", [

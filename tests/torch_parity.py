@@ -20,6 +20,14 @@ def interp(fn, *args, **kw):
 
 
 
+def launches(*names):
+    """The port's recorder counters `names` (`amg_tpu_torch.utils.tracing`),
+    as a tuple: the kernel wrappers' launch counts."""
+    from amg_tpu_torch.utils import tracing
+
+    return tuple(tracing.counter(n) for n in names)
+
+
 def f64(a):
     return np.asarray(a, dtype=np.float64)
 
