@@ -7,8 +7,10 @@ device state is torch tensors. Every Pallas kernel of the reference becomes a
 CUDA C++ kernel written for sm_90a (`csrc/`), built at first use by
 `ops/_build.py`, with a plain PyTorch version beside it that the CPU runs.
 
-The generic (algebraic) path runs no custom kernel, as in the reference;
-its host setup uses the port's copy of the reference's native setup library
+The generic (algebraic) path runs one kernel that the reference does not
+have: every ELL product on the card is one launch of `csrc/ell_spmv.cu`
+(`ops/ell.py`), where the reference's ELL is plain jnp. Its host setup uses
+the port's copy of the reference's native setup library
 (`native/amg_setup.cpp`, built with g++ by `native_backend.py`).
 
 The drivers are the entry point a user calls, as in the reference:
@@ -26,6 +28,7 @@ every entry point runs on the CUDA device unless the caller passes
 
 `parallel/` runs the row-partitioned multi-device path over a mesh of D
 logical shards (`parallel.dist.make_row_mesh`), in one process or spread
-over the processes of a torch.distributed group; no kernel runs there, as
-in the reference.
+over the processes of a torch.distributed group; no kernel of the
+reference's runs there, as in the reference (a shard's plain ELL operator
+takes the ELL kernel; the halo operators gather in plain PyTorch).
 """

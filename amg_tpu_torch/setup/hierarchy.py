@@ -401,6 +401,13 @@ def build_hierarchy(
     from amg_tpu_torch.dtypes import resolve_device
 
     device = resolve_device(device)
+    if device.type == "cuda":
+        from amg_tpu_torch.ops import _build
+
+        # the device levels' ELL products launch the ELL kernel: a cold build
+        # of its library runs beside the host set-up, and its first launch
+        # waits for it
+        _build.prefetch(["ell_spmv"])
     if params.setup_type == "sa":
         from amg_tpu_torch.setup.aggregation import build_sa_host_hierarchy
 

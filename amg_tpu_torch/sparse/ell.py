@@ -2,10 +2,12 @@
 amg_tpu/sparse/ell.py).
 
 Every row is padded to the same width `k`; the spmv gathers x by `cols`,
-multiplies by `vals` and sums over the slot axis. Padding: col 0, val 0
-(safe under the gather). `cols` stays int32 on the device: `index_select`
-takes it on the CPU and on the card, and it halves the index bytes the spmv
-reads. Transposes (restriction) are materialized on the host at setup.
+multiplies by `vals` and sums over the slot axis: on the card in one kernel
+launch (`ops/ell.py::ell_spmv_kernel`), on the CPU in plain PyTorch
+(`ops/ell.py::ell_spmv_plain`). Padding: col 0, val 0 (safe under the
+gather). `cols` stays int32 on the device: the kernel and `index_select`
+take it, and it halves the index bytes the spmv reads. Transposes
+(restriction) are materialized on the host at setup.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from amg_tpu_torch.dtypes import INDEX_DTYPE
+from amg_tpu_torch.ops.ell import ell_spmv_kernel
 from amg_tpu_torch.utils import tracing
 
 
@@ -75,7 +78,10 @@ def ell_from_csr(csr, k: int | None = None, dtype=torch.float64, device="cpu") -
 
 
 def ell_spmv(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x: gather + multiply + reduce over the slot axis."""
+    """y = A @ x: one kernel launch for CUDA tensors, the plain gather,
+    multiply and sum for CPU tensors. x has the matrix's shape_cols entries:
+    the kernel gathers x with no bounds check."""
+    if x.shape[0] != a.shape_cols:
+        raise ValueError(f"ell_spmv: x of {x.shape[0]} entries for {a.shape_cols} columns")
     tracing.count("spmv.ell")
-    g = torch.index_select(x, 0, a.cols.reshape(-1)).view(a.cols.shape)
-    return (a.vals * g).sum(dim=1)
+    return ell_spmv_kernel(a.cols, a.vals, x)

@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. toolchain: torch, CUDA, nvcc, triton; the card's name and power limit;
-  2. build: compiles every kernel (K1-K5) from `amg_tpu_torch/csrc`, one nvcc
-     per source, in parallel;
+  2. build: compiles every kernel (K1-K5 and the ELL kernel) from
+     `amg_tpu_torch/csrc`, one nvcc per source, in parallel;
   3. kernels: K1 (all five modes), K3 and K4 (both zero_guess modes, scale
      and alpha) against their plain PyTorch versions on the card, at 126^3
      (the uniform box: K1 through the box march, `csrc/box_march.cu`) and at
@@ -65,8 +65,9 @@ Phases (any failure exits non-zero and prints no result line):
      on the same bf16 planes: the same iterations and x within 1e-6
      (bit-equality logged). On the 157k beam that stream does not converge
      (ROADMAP F5), so it is not a path here;
- 10. the generic (algebraic) AMG path, no custom kernel on it (its launch
-     counts are logged): `build_hierarchy` of the 27-point Laplacian at 96^3
+ 10. the generic (algebraic) AMG path, no kernel of K1-K5 on it (their
+     launch counts are logged; its ELL products run the ELL kernel,
+     `csrc/ell_spmv.cu`): `build_hierarchy` of the 27-point Laplacian at 96^3
      (884,736 dofs) with the default HierarchyParams (HMIS through the
      port's native setup library, ext+i, p_max_elmts 4, L1-Jacobi, float64,
      the stencil on level 0), whose level_n and level_nnz must equal the
@@ -76,14 +77,19 @@ Phases (any failure exits non-zero and prints no result line):
      entries the JAX package's to rtol 1e-10; the same hierarchy in
      float32 to tol 1e-4 within one cycle of the float64 history's first
      value <= 1e-4; the host clock per cycle, the device's busy time and
-     idle share and its largest rows; ELL, BSR (at choose_bsr_shape's tile)
-     and cuSPARSE CSR spmv on levels 1 and 2 and on elasticity_beam(48, 12,
-     12) in both dtypes beside their byte bounds; at 48^3, hybrid JGS, Jacobi
+     idle share and its largest rows; every ELL product of the float64
+     solve one launch of the ELL kernel; ELL, BSR (at choose_bsr_shape's
+     tile) and cuSPARSE CSR spmv on levels 1 and 2 and on
+     elasticity_beam(48, 12, 12), and ELL and cuSPARSE on level 0's P~ and
+     R~, in both dtypes beside their byte bounds, the ELL kernel beside and
+     against its plain version (k eps max_i sum_j |a_ij x_j|, equal bits
+     over two launches; `spmv_timing`); at 48^3, hybrid JGS, Jacobi
      with Chebyshev after cheby_setup(num_iters=20), and PCG over an
      L1-Jacobi V(1,1), each to 1e-8 in the JAX package's cycle count
      (GENERIC_REF, from tools/torch_generic_reference.py);
  11. the additive and asynchronous solvers on the generic hierarchy, no
-     custom kernel on them (launch counts logged): on phase 10's 96^3
+     kernel of K1-K5 on them (launch counts logged; their ELL products run
+     the ELL kernel): on phase 10's 96^3
      float64 hierarchy, the device bytes of the additive transfers (P~,
      R~, P_id, R_id) and the async state; sync MULTADD (smoothed transfers,
      Chebyshev from cheby_setup) in the JAX package's cycle count, true
@@ -122,7 +128,10 @@ Phases (any failure exits non-zero and prints no result line):
      reference's own (1.12e-8: PCG's recursive residual drifts from the
      true one on this beam); the float32 hierarchy under mixed_pcg (plain
      float32 PCG does not converge here, in the reference either) to a
-     true residual <= 1e-8; the peak memory of the ELL spmv temporaries;
+     true residual <= 1e-8; every ELL product of the float64 solve one
+     launch of the ELL kernel; the peak memory of one ELL spmv above the
+     live set (its output); the ELL kernel on level 0's A, P and R as in
+     phase 10's `spmv_timing`;
  15. AMS-PCG on maxwell_curlcurl(40), 182,520 edges, float64, b =
      default_rng(0).random(n): the node and Pi hierarchies' level sizes and
      the iterations the reference's, true residual <= 1e-8; the async
@@ -171,10 +180,12 @@ Phases (any failure exits non-zero and prints no result line):
      launched, rel_res <= 1e-8, the cycles of the plain composition (K5's
      plain version in every operator).
  18. the row-partitioned multi-device path (`amg_tpu_torch/parallel/`), one
-     process, a mesh of 8 logical shards on the card; no kernel on it, as in
-     the reference (every counter must read 0): (a) goldens config7 and
-     config4 through run_experiment(num_devices=8): cycles, level_n,
-     history[:5] to rtol 1e-10, rel_res <= tol; (b) phase 10's 96^3 host
+     process, a mesh of 8 logical shards on the card; no kernel of K1-K5 on
+     it, as in the reference (every counter of K1-K5 must read 0; the
+     shards' plain ELL operators run the ELL kernel, its launches logged):
+     (a) goldens config7 and config4 through run_experiment(num_devices=8):
+     cycles, level_n, history[:5] to rtol 1e-10, rel_res <= tol; (b) phase
+     10's 96^3 host
      hierarchy through build_dist_hierarchy(comm="halo"), 110,592 rows a
      shard, MULT V(1,1) float64 to 1e-8: the single-device 41 cycles, x
      within 1e-9 of phase 10's, a true residual <= 1e-8; the halo bytes
@@ -186,7 +197,7 @@ Phases (any failure exits non-zero and prints no result line):
      single-device 124 iterations +-1, a true residual <= 1e-8, host and
      device ms an iteration;
  19. grid (level) parallelism on the same mesh (`parallel.grid`), every
-     kernel counter 0 again: (a) goldens config6 and config12 through
+     K1-K5 counter 0 again: (a) goldens config6 and config12 through
      run_experiment(num_devices=8) on the port's generators: level_n and
      level_nnz, steps within +-25% of the golden's; (b) phase 11's 96^3
      FULL async_multadd over the work model's level groups of 8 shards
@@ -227,11 +238,11 @@ Phases (any failure exits non-zero and prints no result line):
      -mixed_precision with config10's options (float32 DIA levels, the
      float64 outer operator): the same PCG count, x within 1e-10; the
      levels' layouts printed; elsewhere the same steps, x within 1e-12,
-     every kernel counter 0 in every process; host ms, device ms and events
+     every K1-K5 counter 0 in every process; host ms, device ms and events
      a step, and the bytes sent to the other process a step
      (`RowMesh.sent_bytes`). A {"routes": ...} line records it.
 The last two lines are the `kernels` JSON object (K1 on both of its
-kernels, K2-K5, K5's bf16-plane sweep) and
+kernels, K2-K5, K5's bf16-plane sweep, the ELL kernel) and
 {"ok": true, "device": {...}}.
 """
 
@@ -434,7 +445,25 @@ def read_counts():
         "K4": tracing.counter("prolong_sweep_padded.launches"),
         "K5": tracing.counter("var_stencil_kernel_padded.launches"),
         "K5 bf16": tracing.counter("var_stencil_kernel_padded.bf16_launches"),
+        "ELL": tracing.counter("ell_spmv.launches"),
     }
+
+
+def ported_launches(counts):
+    """The launches of K1-K5, the kernels that port the reference's, out of
+    read_counts(): what the paths that run none of them are held to. The
+    ELL kernel runs on every path with an ELL operator on the card."""
+    return {k: v for k, v in counts.items() if k != "ELL"}
+
+
+def every_ell_product_launched(label, counts, fails):
+    """Since the last reset_counts(): every ELL product (`spmv.ell`) was one
+    launch of the ELL kernel, and there was one."""
+    from amg_tpu_torch.utils import tracing
+
+    products = tracing.counter("spmv.ell")
+    if counts["ELL"] != products or products == 0:
+        fails.append(f"{label}: {counts['ELL']} ELL kernel launches for {products} ELL products")
 
 
 def true_rel_residual(prob, x, b):
@@ -1419,7 +1448,8 @@ def golden_dia_phase(device):
 
 def ell_peak_mb(m, x):
     """Peak device memory (MB) one ELL spmv allocates above what is live: its
-    (n, k) gather and product temporaries."""
+    output alone (n values), since the ELL kernel writes no (n, k)
+    temporary."""
     import torch
 
     torch.cuda.synchronize()
@@ -1483,8 +1513,9 @@ def sa_phase(device, ref):
         f"rel_res {float(res.rel_resnorm):.4e}, true rel_res {true_rel:.4e}, {solve_s:.3f} s; "
         f"launches {counts}")
     log(f"  the reference's true rel_res {ref['true_rel_res']:.4e}")
+    every_ell_product_launched("SA-PCG float64", counts, fails)
     rec = {"level_n": st["n"], "setup_s": setup_s, "iters64": res.iters,
-           "true_rel_res64": true_rel, "solve64_s": solve_s}
+           "true_rel_res64": true_rel, "solve64_s": solve_s, "counts": counts}
     if res.iters != ref["iters"] or not float(res.rel_resnorm) <= 1e-8 \
             or not true_rel <= 1.05 * ref["true_rel_res"]:
         fails.append("SA-PCG float64: not the reference's iterations or true residual")
@@ -1508,10 +1539,17 @@ def sa_phase(device, ref):
     l0 = hier64.levels[0]
     peaks = {"A0": ell_peak_mb(l0.A, x), "R0": ell_peak_mb(l0.R, x),
              "P0": ell_peak_mb(l0.P, l0.R @ x)}
-    log(f"SA ELL spmv temporaries, float64, peak MB above the live set: {peaks}")
+    log(f"SA ELL spmv, float64, peak MB above the live set (the output): {peaks}")
     rec["ell_peak_mb"] = peaks
-    del hier32, hier64
+    del hier32, hier64, x, l0
     torch.cuda.empty_cache()
+    # the ELL kernel on the beam's level-0 operator and transfers
+    rng = np.random.default_rng(SEED + 14)
+    spmv = {}
+    for field in ("A", "P", "R"):
+        spmv.update(spmv_timing(f"SA beam level 0 {field}", getattr(hh.levels[0], field), device,
+                                rng, fails, bsr=False))
+    rec["spmv"] = {f"{k[0]} {k[1]}": v for k, v in spmv.items()}
     return rec, fails
 
 
@@ -1628,17 +1666,23 @@ GENERIC_REF = {
 BEAM_SPMV = (48, 12, 12)  # the JAX bench's aux_bsr matrix: 24,336 dofs
 
 
-def spmv_timing(name, csr, device, rng):
-    """ELL, BSR (at choose_bsr_shape's tile) and the cuSPARSE CSR matvec of
-    one matrix, CUDA events, float32 and float64, beside the byte bound of
-    y = A x (the CSR values, column indices and row pointers, x and y, each
-    once, at HBM_BYTES_PER_S)."""
+def spmv_timing(name, csr, device, rng, fails, bsr=True):
+    """ELL, BSR (at choose_bsr_shape's tile, where `bsr`) and the cuSPARSE CSR
+    matvec of one matrix, CUDA events over 50 calls after a spin kernel,
+    float32 and float64, beside the byte bound of y = A x (the CSR values,
+    column indices and row pointers, x and y, each once, at HBM_BYTES_PER_S)
+    and the ELL slot bound (every padded slot's value and int32 index, x and
+    y). The ELL product is the ELL kernel (`ops/ell.py::ell_spmv_kernel`, at
+    `lanes_for(k)` lanes a row), timed beside its plain version
+    (`ell_spmv_plain`) and held to it at k eps max_i sum_j |a_ij x_j|, with
+    equal bits over two launches: a miss is appended to `fails`."""
     import torch
 
+    from amg_tpu_torch.ops.ell import ell_spmv_plain, lanes_for
     from amg_tpu_torch.sparse.bsr import bsr_from_csr, choose_bsr_shape
     from amg_tpu_torch.sparse.ell import ell_from_csr
 
-    tile, _ = choose_bsr_shape(csr)
+    tile = choose_bsr_shape(csr)[0] if bsr else None
     n, m = csr.shape
     rows = {}
     for dtype in (torch.float32, torch.float64):
@@ -1646,7 +1690,8 @@ def spmv_timing(name, csr, device, rng):
         item = torch.finfo(dtype).bits // 8
         xs = [torch.from_numpy(rng.random(m)).to(device=device, dtype=dtype) for _ in range(4)]
         ell = ell_from_csr(csr, dtype=dtype, device=device)
-        bsr = bsr_from_csr(csr, bm=tile[0], bn=tile[1], dtype=dtype, device=device) if tile else None
+        bmat = (bsr_from_csr(csr, bm=tile[0], bn=tile[1], dtype=dtype, device=device)
+                if tile else None)
         lib = torch.sparse_csr_tensor(
             torch.from_numpy(csr.indptr.astype(np.int64)),
             torch.from_numpy(csr.indices.astype(np.int64)),
@@ -1654,24 +1699,41 @@ def spmv_timing(name, csr, device, rng):
         ).to(device=device, dtype=dtype)
         want = (lib @ xs[0]).double()
         errs = {}
-        for key, mat in (("ell", ell), ("bsr", bsr)):
+        for key, mat in (("ell", ell), ("bsr", bmat)):
             if mat is not None:
                 errs[key] = float(((mat @ xs[0]).double() - want).abs().max() / want.abs().max())
+        got, again = ell @ xs[0], ell @ xs[0]
+        plain = ell_spmv_plain(ell.cols, ell.vals, xs[0])
+        scale = float(ell_spmv_plain(ell.cols, ell.vals.abs(), xs[0].abs()).max())
+        tol = max(ell.k, 1) * torch.finfo(dtype).eps * scale
+        err = float((got - plain).abs().max())
+        same = bool(torch.equal(got, again))
+        if not (err <= tol and same):
+            fails.append(f"ELL kernel on {name} {dn}: |kernel - plain| {err:.3e} > {tol:.3e} "
+                         f"or not the same bits over two launches ({same})")
         bytes_ = csr.nnz * (item + 4) + (n + 1) * 4 + (m + n) * item
+        slot_bytes = n * ell.k * (item + 4) + (m + n) * item
         r = {
             "ell_ms": cuda_time(lambda i: ell @ xs[i % 4], 50),
-            "bsr_ms": cuda_time(lambda i: bsr @ xs[i % 4], 50) if bsr is not None else None,
+            "ell_plain_ms": cuda_time(lambda i: ell_spmv_plain(ell.cols, ell.vals, xs[i % 4]), 50),
+            "bsr_ms": cuda_time(lambda i: bmat @ xs[i % 4], 50) if bmat is not None else None,
             "cusparse_ms": cuda_time(lambda i: lib @ xs[i % 4], 50),
             "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bytes": bytes_,
-            "ell_k": ell.k, "bsr_tile": tile, "bsr_kb": bsr.kb if bsr is not None else None,
-            "rel_err_vs_cusparse": errs,
+            "ell_slot_bound_ms": slot_bytes / HBM_BYTES_PER_S * 1e3,
+            "ell_k": ell.k, "ell_lanes": lanes_for(ell.k), "ell_err_vs_plain": err,
+            "ell_scale": scale, "ell_tol": tol, "ell_pass": err <= tol and same, "bsr_tile": tile,
+            "bsr_kb": bmat.kb if bmat is not None else None, "rel_err_vs_cusparse": errs,
         }
         rows[(name, dn)] = r
-        log(f"  spmv {name} ({n}x{m}, {csr.nnz} nnz) {dn}: ELL (k {ell.k}) {r['ell_ms']:.4f} ms, "
-            f"BSR {tile} (kb {r['bsr_kb']}) {r['bsr_ms'] if r['bsr_ms'] is None else round(r['bsr_ms'], 4)} ms, "
+        log(f"  spmv {name} ({n}x{m}, {csr.nnz} nnz) {dn}: ELL kernel (k {ell.k}, "
+            f"{r['ell_lanes']} lanes) {r['ell_ms']:.4f} ms, plain {r['ell_plain_ms']:.4f} ms, "
+            f"|kernel - plain| {err:.3e} (limit {tol:.3e}), bits equal over two launches "
+            f"{same}; BSR {tile} (kb {r['bsr_kb']}) "
+            f"{r['bsr_ms'] if r['bsr_ms'] is None else round(r['bsr_ms'], 4)} ms, "
             f"cuSPARSE CSR {r['cusparse_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({bytes_ / 1e6:.1f} MB); rel err vs cuSPARSE {errs}")
-        del ell, bsr, lib
+            f"({bytes_ / 1e6:.1f} MB), ELL slot bound {r['ell_slot_bound_ms']:.4f} ms; "
+            f"rel err vs cuSPARSE {errs}")
+        del ell, bmat, lib
     return rows
 
 
@@ -2079,6 +2141,7 @@ def generic_phase(device, keep):
     log(f"generic float64 MULT V(1,1) L1-Jacobi: cycles {res.iters} (reference "
         f"{GENERIC_REF['96']['iters']}), rel_res {float(res.rel_resnorm):.4e}, true rel_res "
         f"(float64 CSR) {true_rel:.4e}, {solve_s:.3f} s; launches {counts}")
+    every_ell_product_launched("generic float64 solve", counts, fails)
     log("  history[:5]", [float(f"{h:.6e}") for h in hist64[:5]],
         "reference", [float(f"{h:.6e}") for h in GENERIC_REF["96"]["history"][:5]])
     rec.update(iters64=res.iters, rel_res64=float(res.rel_resnorm), true_rel_res64=true_rel,
@@ -2149,11 +2212,16 @@ def generic_phase(device, keep):
     rng = np.random.default_rng(SEED + 9)
     spmv = {}
     for k in (1, 2):
-        spmv.update(spmv_timing(f"{GENERIC_N}^3 level {k}", hh.levels[k].A, device, rng))
+        spmv.update(spmv_timing(f"{GENERIC_N}^3 level {k}", hh.levels[k].A, device, rng,
+                                fails))
+    # the sync MULTADD cycle's largest transfers, P~0 and R~0
+    for field in ("P_s", "R_s"):
+        spmv.update(spmv_timing(f"{GENERIC_N}^3 level 0 {field}", getattr(hh.levels[0], field),
+                                device, rng, fails, bsr=False))
     del hier32, hier64, hh
     torch.cuda.empty_cache()
     beam = elasticity_beam(*BEAM_SPMV)
-    spmv.update(spmv_timing(f"beam {BEAM_SPMV}", beam.A, device, rng))
+    spmv.update(spmv_timing(f"beam {BEAM_SPMV}", beam.A, device, rng, fails))
     rec["spmv"] = {f"{k[0]} {k[1]}": v for k, v in spmv.items()}
 
     prob48 = laplacian_3d_27pt(GENERIC_SIDE)
@@ -2220,7 +2288,7 @@ def run_driver(opts, device, exp=None):
 
 def plain_driver_solve(hier, exp, device):
     """The plain composition of a run: driver.solve on the same hierarchy,
-    the run's cycle and b, launch counts logged (no custom kernel)."""
+    the run's cycle and b, launch counts logged (no kernel of K1-K5)."""
     import torch
 
     from amg_tpu_torch.solve.driver import solve
@@ -2273,7 +2341,8 @@ def drivers_phase(device, keep):
     r.update(log_profile("(a) V(1,1) solve through the runner",
                          solve_profile(lambda: solve_experiment(exp), st.cycles)))
     rec["a v11"] = r
-    if min(counts[k] for k in ("K1", "K3", "K4")) == 0 or max(pcounts.values()) > 0:
+    if min(counts[k] for k in ("K1", "K3", "K4")) == 0 \
+            or max(ported_launches(pcounts).values()) > 0:
         fails.append("(a) V(1,1): K1 box, K3 or K4 not launched, or the plain composition "
                      "launched a kernel")
     if not true_rel <= 1e-8 or st.cycles != plain.iters or dx > 1e-10:
@@ -2297,7 +2366,7 @@ def drivers_phase(device, keep):
     r.update(log_profile("(a) V(3,3) solve through the runner",
                          solve_profile(lambda: solve_experiment(exp33), st33.cycles)))
     rec["a v33"] = r
-    if c33["K1 taps"] == 0 or max(p33.values()) > 0:
+    if c33["K1 taps"] == 0 or max(ported_launches(p33).values()) > 0:
         fails.append("(a) V(3,3): K1's tap route not launched, or the plain composition launched "
                      "a kernel")
     if not true33 <= 1e-8 or st33.cycles != plain33.iters or dx33 > 1e-10:
@@ -2414,7 +2483,7 @@ def drivers_phase(device, keep):
                          solve_profile(lambda: solve_experiment(exp), st.cycles)))
     rec["f vardifconv"] = r
     if counts["K5"] == 0 or not st.rel_resnorm <= 1e-8 or st.cycles != plain.iters \
-            or max(pcounts.values()) > 0:
+            or max(ported_launches(pcounts).values()) > 0:
         fails.append("(f) vardifconv: K5 not launched, rel_res > 1e-8 or not the plain "
                      "composition's cycles")
     del exp, st, plain_hier, plain
@@ -2455,8 +2524,9 @@ def multidevice_phase(device, keep, ams_ref):
     fails, rec = [], {"goldens": {}}
 
     def no_kernel(label, counts):
-        if any(counts.values()):
-            fails.append(f"{label}: a kernel was launched on the multi-device path {counts}")
+        if any(ported_launches(counts).values()):
+            fails.append(f"{label}: a kernel of K1-K5 was launched on the multi-device path "
+                         f"{counts}")
 
     # (a) the multi-device goldens through the runner
     for name in MULTI_GOLDENS:
@@ -2627,8 +2697,9 @@ def grid_phase(device, keep):
     fails, rec = [], {"goldens": {}}
 
     def no_kernel(label, counts):
-        if any(counts.values()):
-            fails.append(f"{label}: a kernel was launched on the grid path {counts}")
+        if any(ported_launches(counts).values()):
+            fails.append(f"{label}: a kernel of K1-K5 was launched on the grid path "
+                         f"{counts}")
 
     # (a) the grid goldens through the runner, on the port's generators
     for name in GRID_GOLDENS:
@@ -3319,7 +3390,7 @@ def routes_phase(device, keep):
             if r["steps"] != o["steps"] or not r["dx"] <= band:
                 fails.append(f"phase 20 {name}: worker {w['rank']} not the one-process steps "
                              f"or x within {band}")
-            if any(r["counts"].values()):
+            if any(ported_launches(r["counts"]).values()):
                 fails.append(f"phase 20 {name}: a kernel was launched {r['counts']}")
             if name == "cheby power" and not np.allclose(r["bounds"], o["bounds"], rtol=1e-12,
                                                          atol=0):
@@ -3327,7 +3398,7 @@ def routes_phase(device, keep):
             if name == "async_smooth" and not np.allclose(r["history"], o["history"],
                                                           rtol=0, atol=1e-12):
                 fails.append("phase 20 async_smooth: not the one-process history")
-        if any(o["counts"].values()):
+        if any(ported_launches(o["counts"]).values()):
             fails.append(f"phase 20 {name}: a kernel was launched in one process {o['counts']}")
         if not o.get("dx_earlier_phase", 0.0) <= 1e-15:
             fails.append(f"phase 20 {name}: the one-process run is not phase 18's / 19's")
@@ -3565,6 +3636,22 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    # the ELL kernel, which replaces no TPU kernel (the reference's ELL is
+    # plain jnp): its time on the SA beam's level-0 A in float64 (the PCG
+    # matvec of the benchmark's beam cell), its launches on the float64
+    # SA-PCG solve, its errors against its plain version on every operator
+    # spmv_timing ran (relative to max_i sum_j |a_ij x_j|), both dtypes
+    ell_rows = list(sa["spmv"].values()) + list(gen["spmv"].values())
+    a0 = sa["spmv"]["SA beam level 0 A float64"]
+    kernels.append({
+        "name": "ELL", "route": "cuda", "source": "amg_tpu_torch/csrc/ell_spmv.cu",
+        "replaces": None, "launches": sa["counts"]["ELL"],
+        "max_abs_err": max(r["ell_err_vs_plain"] for r in ell_rows),
+        "max_rel_err": max(r["ell_err_vs_plain"] / r["ell_scale"] for r in ell_rows),
+        "pass": all(r["ell_pass"] for r in ell_rows),
+        "ms": a0["ell_ms"], "plain_ms": a0["ell_plain_ms"], "bound_ms": a0["bound_ms"],
+        "bound_by": "bytes", "library_ms": a0["cusparse_ms"],
+    })
     log(json.dumps({"card": card, "n": prob.n, "cycles": res.iters, "rel_res": rel32,
                     **cycle}))
     log(json.dumps({"v33": v33}))

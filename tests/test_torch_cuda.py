@@ -10,8 +10,9 @@ plane, chunks that do not divide the planes, one chunk longer than the
 array), and so is K4 (`csrc/prolong_march.cu`). K5 also takes bf16
 coefficient planes in its sweep.
 
-The generic (algebraic) path, which runs no custom kernel: its 24^3 solve
-on the card against the port on the CPU (the same cycles, float64 history
+The generic (algebraic) path, whose ELL products run the ELL kernel
+(`csrc/ell_spmv.cu`; its own tests are `test_torch_ell_kernel.py`): its
+24^3 solve on the card against the port on the CPU (the same cycles, float64 history
 to 1e-10), ELL and BSR spmv on the card against the CPU, and the DIA
 fine-operator branch of `device_hierarchy` (K5 below float64). Its
 additive cycles, `async_solve` (FULL and SEMI) and `async_smooth_solve` at

@@ -26,7 +26,8 @@ from amg_tpu_torch.sparse import bsr as pbsr
 from amg_tpu_torch.sparse import ell as pell
 from amg_tpu_torch.sparse.csr import CSRMatrix
 from torch_parity import GENERIC_MATRICES as GENERIC
-from torch_parity import bsr_blocks, export_jax_hierarchy, level_sizes, port_host_hierarchy
+from torch_parity import (bsr_blocks, export_jax_hierarchy, launches, level_sizes,
+                          port_host_hierarchy)
 
 torch.set_num_threads(1)
 
@@ -61,7 +62,10 @@ def test_ell_matches(mats, name):
     np.testing.assert_array_equal(cols, np.asarray(want.cols))
     np.testing.assert_array_equal(vals, np.asarray(want.vals))
     x = np.random.default_rng(1).random(m.shape[1])
+    before = launches("spmv.ell", "ell_spmv.launches")
     got = pell.ell_from_csr(port_csr(m)) @ torch.from_numpy(x)
+    # on the CPU the product is the plain version: one spmv.ell, no launch
+    assert launches("spmv.ell", "ell_spmv.launches") == (before[0] + 1, before[1])
     assert got.shape == (m.shape[0],)
     assert _rel(got, rell.ell_spmv(want, jnp.asarray(x))) <= TOL
     r = residual(pell.ell_from_csr(port_csr(m)), torch.from_numpy(x), got)
